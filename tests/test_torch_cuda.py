@@ -1,0 +1,80 @@
+"""usearch12_tpu_torch's CUDA kernels against their plain PyTorch versions
+and the oracle, on the card.  Marked `cuda`; they skip where no card is
+present.  Run them on a machine with one:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from usearch12_tpu.align.oracle import banded_nw_main_diag
+from usearch12_tpu_torch.ops import wavefront_nw as wnw
+from usearch12_tpu_torch.ops import wavefront_trace as wtr
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
+
+
+def _pairs(seed, n, lmin, lmax):
+    rng = np.random.default_rng(seed)
+    conv = np.frombuffer(b"ACGT", np.uint8)
+    out = []
+    for _ in range(n):
+        la = int(rng.integers(lmin, lmax))
+        lb = max(1, la + int(rng.integers(-20, 21)))
+        a, b = rng.integers(0, 4, la), rng.integers(0, 4, lb)
+        m = min(la, lb)
+        b[:m] = a[:m]
+        b[rng.integers(0, m, max(1, m // 10))] = rng.integers(
+            0, 4, max(1, m // 10))
+        out.append((conv[a], conv[b]))
+    return out
+
+
+def _bit_equal(x, y):
+    if x.dtype == torch.float32:
+        x, y = x.view(torch.int32), y.view(torch.int32)
+    return torch.equal(x, y)
+
+
+@pytest.mark.parametrize("radius,cls", [(16, 0), (120, 5), (7, 15)])
+def test_kernels_match_plain_versions(card, radius, cls):
+    ap = wnw.nucleo_params(-10.3, -1.1, -0.7, -0.4).hole_params(
+        bool(cls & 1), bool(cls & 2), bool(cls & 4), bool(cls & 8))
+    pairs = _pairs(radius + cls, 64, 1, 400)
+    w = wnw.pack_launch(pairs, *wnw.pair_geometry(pairs, radius), card)
+    gp = wnw.gap_params_from_jax(ap).to(card)
+    mm = wnw.match_mismatch(ap)
+    n0 = wnw.wavefront_fwd.launches
+    fwd = wnw.wavefront_fwd(*w, gp, *mm)
+    assert wnw.wavefront_fwd.launches == n0 + 1
+    plain = wnw.wavefront_fwd_plain(*w, gp, *mm)
+    for x, y in zip(fwd, plain):
+        assert _bit_equal(x, y)
+    args = (fwd[0], w.tb_off, fwd[1], fwd[2], w.la, w.lb, w.dlo, w.bw, gp)
+    tr = wtr.wavefront_trace(*args)
+    torch.cuda.synchronize()
+    for x, y in zip(tr, wtr.wavefront_trace_plain(*args, tr[1].shape[1])):
+        assert _bit_equal(x, y)
+    paths = wtr.decode_ops(tr[1].cpu().numpy(), tr[2].cpu().numpy())
+    for k in range(0, len(pairs), 8):
+        s_o, p_o = banded_nw_main_diag(*pairs[k], radius, ap)
+        assert np.float32(s_o) == tr[0][k].item() and p_o == paths[k]
+
+
+def test_aligner_on_card_matches_cpu(card):
+    ap = wnw.nucleo_params(-10.0, -1.0, -0.5, -0.5)
+    pairs = _pairs(3, 200, 100, 900)
+    s_gpu, p_gpu = wnw.TorchWaveAligner(ap, card, tb_budget=1 << 20).align(
+        pairs, 32)
+    s_cpu, p_cpu = wnw.TorchWaveAligner(ap, torch.device("cpu")).align(
+        pairs, 32)
+    assert np.array_equal(s_gpu, s_cpu) and p_gpu == p_cpu

@@ -1,0 +1,128 @@
+"""usearch_global end to end through usearch12_tpu_torch on the CPU (the
+kernels' plain PyTorch versions) against the JAX package's host C path,
+on a scaled-down copy of the long-contig device workload (bench.py's
+_gen_longseq: conserved blocks between divergent segments, so every
+query chains with every target and the holes go to the device path)."""
+
+import json
+
+import numpy as np
+import pytest
+
+import usearch12_tpu.cli as jax_cli
+import usearch12_tpu_torch.cli as port_cli
+
+COMMON = ["-id", "0.5", "-strand", "plus", "-band", "120",
+          "-maxaccepts", "64", "-maxrejects", "64", "-quiet"]
+
+
+def gen_contigs(qf, tf, n=5, n_var=4, var=260, blk=150, seed=21):
+    rng = np.random.default_rng(seed)
+    conv = np.frombuffer(b"ACGT", np.uint8)
+    blocks = [conv[rng.integers(0, 4, blk)] for _ in range(n_var + 1)]
+
+    def assemble(segs):
+        parts = []
+        for k in range(n_var):
+            parts += [blocks[k], segs[k]]
+        parts.append(blocks[n_var])
+        return np.concatenate(parts).tobytes().decode()
+
+    targets = [[conv[rng.integers(0, 4, var)] for _ in range(n_var)]
+               for _ in range(n)]
+    with open(tf, "w") as f:
+        for i, segs in enumerate(targets):
+            f.write(f">lt{i}\n{assemble(segs)}\n")
+    with open(qf, "w") as f:
+        for i in range(n):
+            segs = []
+            for s in targets[i]:
+                t = s.copy()
+                flip = rng.random(var) < 0.5
+                t[flip] = conv[rng.integers(0, 4, int(flip.sum()))]
+                # an indel shifts the hole off the main diagonal
+                cut = int(rng.integers(0, var))
+                segs.append(np.delete(t, cut) if i % 2 else t)
+            f.write(f">lq{i}\n{assemble(segs)}\n")
+
+
+@pytest.fixture(scope="module")
+def contigs(tmp_path_factory):
+    d = tmp_path_factory.mktemp("contigs")
+    qf, tf = str(d / "q.fa"), str(d / "t.fa")
+    gen_contigs(qf, tf)
+    outs = ["-blast6out", "-uc", "-matched", "-notmatched"]
+    ref = [str(d / f"ref{k}") for k in range(len(outs))]
+    assert jax_cli.main(["-usearch_global", qf, "-db", tf] + COMMON
+                        + ["-no_engine_device"]
+                        + [x for pair in zip(outs, ref) for x in pair]) == 0
+    return d, qf, tf, [open(r, "rb").read() for r in ref]
+
+
+def _run_port(d, qf, tf, outs, monkeypatch):
+    stats = d / "stats.jsonl"
+    monkeypatch.setenv("USEARCH_DEVICE_STATS", str(stats))
+    assert port_cli.main(["-usearch_global", qf, "-db", tf] + COMMON
+                         + ["-dev_batch_cells", "1"] + outs,
+                         device="cpu") == 0
+    return json.loads(stats.read_text().splitlines()[-1])
+
+
+def test_blast6_equals_host_path(contigs, monkeypatch):
+    d, qf, tf, ref = contigs
+    out = d / "port.b6"
+    ds = _run_port(d, qf, tf, ["-blast6out", str(out)], monkeypatch)
+    assert ref[0].count(b"\n") == 25
+    assert out.read_bytes() == ref[0]
+    assert ds["device"] and ds["device_cells"] > 0
+    assert ds["host_cells"] == 0 and ds["dispatches"] > 0
+
+
+def test_all_outputs_equal_host_path(contigs, monkeypatch):
+    """-blast6out, -uc, -matched and -notmatched together (the per-query
+    emit path rather than the packed blast6 emitter)."""
+    d, qf, tf, ref = contigs
+    outs = ["-blast6out", "-uc", "-matched", "-notmatched"]
+    mine = [d / f"port{k}" for k in range(len(outs))]
+    ds = _run_port(d, qf, tf,
+                   [str(x) for pair in zip(outs, mine) for x in pair],
+                   monkeypatch)
+    assert [m.read_bytes() for m in mine] == ref
+    assert ds["device_cells"] > 0
+
+
+def test_cli_needs_a_card_unless_cpu_is_passed(contigs, monkeypatch):
+    _, qf, tf, _ = contigs
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_cli.main(["-usearch_global", qf, "-db", tf] + COMMON
+                      + ["-blast6out", "/dev/null"])
+
+
+@pytest.mark.parametrize("extra", [["-mesh", "2"], ["-device_rank"],
+                                   ["-use_serial_driver"],
+                                   ["-alnout", "/dev/null"]])
+def test_unported_paths_say_so(contigs, extra):
+    _, qf, tf, _ = contigs
+    with pytest.raises(SystemExit, match="not yet ported"):
+        port_cli.main(["-usearch_global", qf, "-db", tf] + COMMON
+                      + ["-blast6out", "/dev/null"] + extra, device="cpu")
+
+
+def test_other_commands_exit_2(capsys):
+    assert port_cli.main(["-cluster_fast", "x.fa", "-id", "0.9"],
+                         device="cpu") == 2
+    assert "not yet ported" in capsys.readouterr().err
+
+
+def test_holes_wider_than_the_kernel_run_on_host(contigs, monkeypatch):
+    """Holes whose band exceeds BW_DEV_MAX take the host C kernel within
+    the same round; the queries with an indel have bands of 242 here."""
+    from usearch12_tpu_torch.engine import TorchBatchEngine
+    monkeypatch.setattr(TorchBatchEngine, "BW_DEV_MAX", 241)
+    d, qf, tf, ref = contigs
+    out = d / "port_split.b6"
+    ds = _run_port(d, qf, tf, ["-blast6out", str(out)], monkeypatch)
+    assert out.read_bytes() == ref[0]
+    assert ds["device_cells"] > 0 and ds["host_cells"] > 0

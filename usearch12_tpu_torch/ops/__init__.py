@@ -1,0 +1,1 @@
+"""Device kernels of the port, each with its plain PyTorch version."""

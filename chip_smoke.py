@@ -6,11 +6,19 @@
 Phases, each printing a line, any failure exits non-zero:
   1. device: the card's name, and its name and power limit from nvidia-smi;
   2. build: the CUDA kernels of usearch12_tpu_torch/csrc with nvcc;
-  3. kernels: each kernel against its plain PyTorch version on the card,
+  3. kernels: the hole DP kernels (wavefront_fwd, wavefront_trace)
+     against their plain PyTorch versions on the card,
      bit for bit, at 65,536 pairs of 250 nt (band radius 16) and 512
      pairs of 3 kb (band radius 120, non-dyadic gap penalties), and a
      256-pair subsample against the host C kernel nw_band;
-  4. slice: usearch_global through the port's command line
+  4. oracle: the row-sweep kernels of the device oracle BandedNWDevice
+     (banded_nw_fwd, banded_nw_chase) bit for bit against their plain
+     versions at the 65,536 pairs of 250 nt (radius 16) and at 2,048
+     pairs of 1 kb (radius 62, band 125, non-dyadic gap penalties); then
+     BandedNWDevice.align_device on all 65,536 pairs of 250 nt, whose
+     scores and paths must equal those of TorchWaveAligner.align (the
+     hole DP kernels of phase 3) on every pair;
+  5. slice: usearch_global through the port's command line
      (usearch12_tpu_torch.cli.main, in this process so that the kernels'
      launch counts can be read) on the long-contig workload (32 queries x
      32 targets of 24,150 nt), whose blast6 bytes must equal those of
@@ -101,10 +109,32 @@ def bit_equal(x, y):
     return x.shape == y.shape and bool(torch.equal(x, y))
 
 
-def cuda_ms(fn, reps):
-    """Mean device time of fn() over reps runs, after one warm-up."""
+def balanced_indel_pairs(rng, n, length, max_indel=40, sub_rate=0.1):
+    """n (a, b) pairs of equal length: b is a with ~sub_rate
+    substitutions, k single-letter deletions and k single-letter
+    insertions, 2k <= max_indel."""
+    import numpy as np
+    conv = np.frombuffer(b"ACGT", np.uint8)
+    a = rng.integers(0, 4, (n, length))
+    b = a.copy()
+    flip = rng.random((n, length)) < sub_rate
+    b[flip] = rng.integers(0, 4, int(flip.sum()))
+    pairs = []
+    for k in range(n):
+        m = int(rng.integers(0, max_indel // 2 + 1))
+        bk = np.delete(b[k], rng.choice(length, m, replace=False))
+        bk = np.insert(bk, np.sort(rng.integers(0, length - m + 1, m)),
+                       rng.integers(0, 4, m))
+        pairs.append((conv[a[k]], conv[bk]))
+    return pairs
+
+
+def cuda_ms(fn, reps, warm=True):
+    """Mean device time of fn() over reps runs, after one warm-up unless
+    warm is False."""
     import torch
-    fn()
+    if warm:
+        fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -170,6 +200,58 @@ def check_kernels(tag, pairs, radius, ap, dev, reps):
             "trace_err": float((tr[0] - tr_plain[0]).abs().max())}
 
 
+def check_banded(tag, pairs, radius, ap, dev, reps):
+    """The device oracle's kernels against their plain versions on
+    `pairs`; returns a dict of times and errors."""
+    import numpy as np
+    import torch
+    from usearch12_tpu_torch.ops import banded_nw as bn
+    from usearch12_tpu_torch.ops import wavefront_nw as wnw
+    batch = bn.pack_pairs(pairs, True, radius)
+    geo = tuple(torch.from_numpy(x).to(dev) for x in (
+        batch.la, batch.lb, batch.dlo, batch.bw))
+    a_let, b_let = (torch.from_numpy(x).to(dev)
+                    for x in (batch.a_let, batch.b_let))
+    gp = wnw.gap_params_from_jax(ap).to(dev)
+    match, mismatch = wnw.match_mismatch(ap)
+    fwd_ms, fwd = cuda_ms(lambda: bn.banded_nw_fwd(
+        a_let, b_let, *geo, gp, match, mismatch), reps)
+    width = fwd[1].shape[1]
+    fwd_plain_ms, fwd_plain = cuda_ms(lambda: bn.banded_nw_fwd_plain(
+        a_let, b_let, *geo, gp, match, mismatch, width), 1, warm=False)
+    for name, x, y in zip(("tb", "mlast", "dlb"), fwd, fwd_plain):
+        if not bit_equal(x, y):
+            fail(f"oracle {tag}: banded_nw_fwd {name} differs from its "
+                 "plain version")
+    fwd_err = max(float((fwd[1] - fwd_plain[1]).abs().max()),
+                  float((fwd[2] - fwd_plain[2]).abs().max()))
+    del fwd_plain
+    tb, mlast, dlb = fwd
+    ch_ms, ch = cuda_ms(lambda: bn.banded_nw_chase(tb, mlast, dlb, *geo,
+                                                   gp), reps)
+    stride = ch[3].shape[1]
+    ch_plain_ms, ch_plain = cuda_ms(lambda: bn.banded_nw_chase_plain(
+        tb, mlast, dlb, *geo, gp, stride), 1, warm=False)
+    for name, x, y in zip(("scores", "states", "tblast", "ops"), ch,
+                          ch_plain):
+        if not bit_equal(x, y):
+            fail(f"oracle {tag}: banded_nw_chase {name} differs from its "
+                 "plain version")
+    if not torch.isfinite(ch[0]).all():
+        fail(f"oracle {tag}: non-finite scores")
+    cells = int((np.minimum(batch.la, batch.lb).astype(np.int64)
+                 * (2 * radius + 1)).sum())
+    print(f"oracle {tag}: {len(pairs)} pairs, {cells} cells; banded_nw_fwd "
+          f"{fwd_ms:.3f} ms ({cells / fwd_ms / 1e6:.2f} Gcells/s), plain "
+          f"{fwd_plain_ms:.1f} ms; banded_nw_chase {ch_ms:.3f} ms "
+          f"({cells / ch_ms / 1e6:.2f} Gcells/s), plain {ch_plain_ms:.1f} "
+          "ms; bit-equal to plain", flush=True)
+    return {"fwd_ms": fwd_ms, "fwd_plain_ms": fwd_plain_ms,
+            "fwd_err": fwd_err,
+            "chase_ms": ch_ms, "chase_plain_ms": ch_plain_ms,
+            "chase_err": float((ch[0] - ch_plain[0]).abs().max())}
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "usearch12_tpu_torch")):
         fail("run from a checkout of the repository (no "
@@ -181,6 +263,7 @@ def main():
     import numpy as np
     from usearch12_tpu_torch import _build, cli
     from usearch12_tpu_torch.device import card_info, resolve_device
+    from usearch12_tpu_torch.ops import banded_nw as bn
     from usearch12_tpu_torch.ops import wavefront_nw as wnw
     from usearch12_tpu_torch.ops import wavefront_trace as wtr
 
@@ -204,11 +287,42 @@ def main():
     ap = wnw.nucleo_params(-10.0, -1.0, -0.5, -0.5)     # the defaults
     ap_nd = wnw.nucleo_params(-10.3, -1.1, -0.7, -0.4)  # non-dyadic
     rng = np.random.default_rng(7)
-    check_kernels("250nt", kernel_pairs(rng, 65536, 250), 16, ap, dev, 5)
+    pairs_a = kernel_pairs(rng, 65536, 250)
+    check_kernels("250nt", pairs_a, 16, ap, dev, 5)
     big = check_kernels("3kb", kernel_pairs(rng, 512, 3000, indel=40), 120,
                         ap_nd, dev, 3)
 
-    # 4. the slice: usearch_global on the long-contig workload
+    # 4. the device oracle: its kernels against their plain versions, then
+    # BandedNWDevice judging the hole DP kernels on every pair of shape (a)
+    t_phase = time.perf_counter()
+    orc = check_banded("250nt", pairs_a, 16, ap, dev, 5)
+    orc_wide = check_banded(
+        "1kb", balanced_indel_pairs(np.random.default_rng(8), 2048, 1000),
+        62, ap_nd, dev, 3)
+    bn.banded_nw_fwd.launches = 0
+    bn.banded_nw_chase.launches = 0
+    t0 = time.perf_counter()
+    s_orc, p_orc = bn.BandedNWDevice(ap, dev).align_device(pairs_a, 16)
+    torch.cuda.synchronize()
+    t_orc = time.perf_counter() - t0
+    orc_launches = {"banded_nw_fwd": bn.banded_nw_fwd.launches,
+                    "banded_nw_chase": bn.banded_nw_chase.launches}
+    t0 = time.perf_counter()
+    s_wave, p_wave = wnw.TorchWaveAligner(ap, dev).align(pairs_a, 16)
+    t_wave = time.perf_counter() - t0
+    n_diff = int(sum(1 for k in range(len(pairs_a))
+                     if s_orc[k] != s_wave[k] or p_orc[k] != p_wave[k]))
+    print(f"oracle judge: {len(pairs_a)} pairs of 250 nt; "
+          f"BandedNWDevice.align_device {t_orc:.2f} s, "
+          f"TorchWaveAligner.align {t_wave:.2f} s; launches {orc_launches}; "
+          f"{n_diff} pairs differ; phase {time.perf_counter() - t_phase:.1f}"
+          " s", flush=True)
+    if n_diff:
+        fail(f"BandedNWDevice and TorchWaveAligner differ on {n_diff} pairs")
+    if min(orc_launches.values()) <= 0:
+        fail(f"a kernel was not launched on the oracle path: {orc_launches}")
+
+    # 5. the slice: usearch_global on the long-contig workload
     with tempfile.TemporaryDirectory() as d:
         qf, tf = os.path.join(d, "lq.fa"), os.path.join(d, "lt.fa")
         gen_longseq(qf, tf)
@@ -271,7 +385,19 @@ def main():
          "replaces": "usearch12_tpu/ops/wavefront_trace.py:54",
          "launches": launches["wavefront_trace"],
          "max_abs_err": big["trace_err"], "ms": big["trace_ms"],
-         "plain_ms": big["trace_plain_ms"]}]}))
+         "plain_ms": big["trace_plain_ms"]},
+        {"name": "banded_nw_fwd", "route": "cuda",
+         "source": "usearch12_tpu_torch/csrc/banded_nw.cu",
+         "replaces": "usearch12_tpu/ops/banded_nw.py:122",
+         "launches": orc_launches["banded_nw_fwd"],
+         "max_abs_err": max(orc["fwd_err"], orc_wide["fwd_err"]),
+         "ms": orc["fwd_ms"], "plain_ms": orc["fwd_plain_ms"]},
+        {"name": "banded_nw_chase", "route": "cuda",
+         "source": "usearch12_tpu_torch/csrc/banded_nw.cu",
+         "replaces": "usearch12_tpu/ops/banded_nw.py:569",
+         "launches": orc_launches["banded_nw_chase"],
+         "max_abs_err": max(orc["chase_err"], orc_wide["chase_err"]),
+         "ms": orc["chase_ms"], "plain_ms": orc["chase_plain_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -78,3 +78,46 @@ def test_aligner_on_card_matches_cpu(card):
     s_cpu, p_cpu = wnw.TorchWaveAligner(ap, torch.device("cpu")).align(
         pairs, 32)
     assert np.array_equal(s_gpu, s_cpu) and p_gpu == p_cpu
+
+
+@pytest.mark.parametrize("radius,pen", [(16, (-10.0, -1.0, -0.5, -0.5)),
+                                        (62, (-10.3, -1.1, -0.7, -0.4))])
+def test_banded_nw_kernels_match_plain_versions(card, radius, pen):
+    from usearch12_tpu_torch.ops import banded_nw as bn
+    ap = wnw.nucleo_params(*pen)
+    rng = np.random.default_rng(radius)
+    conv = np.frombuffer(b"ACGT", np.uint8)
+    pairs = []
+    for _ in range(96):
+        la = int(rng.integers(1, 300))
+        a = rng.integers(0, 4, la)
+        b = a.copy()
+        b[rng.random(la) < 0.1] = rng.integers(0, 4)
+        if radius == 16 and la > 8:
+            b = b[:la - int(rng.integers(0, 8))]
+        pairs.append((conv[a], conv[b]))
+    batch = bn.pack_pairs(pairs, True, radius)
+    args = tuple(torch.from_numpy(x).to(card) for x in (
+        batch.a_let, batch.b_let, batch.la, batch.lb, batch.dlo, batch.bw))
+    gp = wnw.gap_params_from_jax(ap).to(card)
+    mm = wnw.match_mismatch(ap)
+    n0 = (bn.banded_nw_fwd.launches, bn.banded_nw_chase.launches)
+    for with_tb in (True, False):
+        fwd = bn.banded_nw_fwd(*args, gp, *mm, with_tb)
+        plain = bn.banded_nw_fwd_plain(*args, gp, *mm, fwd[1].shape[1],
+                                       with_tb)
+        for x, y in zip(fwd, plain):
+            assert (x is None and y is None) or _bit_equal(x, y)
+        ch = bn.banded_nw_chase(fwd[0], fwd[1], fwd[2], *args[2:], gp)
+        stride = (int((batch.la + batch.lb).max()) + 3) // 4
+        ch_plain = bn.banded_nw_chase_plain(fwd[0], fwd[1], fwd[2],
+                                            *args[2:], gp, stride)
+        torch.cuda.synchronize()
+        for x, y in zip(ch, ch_plain):
+            assert (x is None and y is None) or _bit_equal(x, y)
+    assert (bn.banded_nw_fwd.launches, bn.banded_nw_chase.launches) == \
+        (n0[0] + 2, n0[1] + 2)
+    s, p = bn.BandedNWDevice(ap, card).align_device(pairs, radius)
+    for k in range(0, len(pairs), 8):
+        s_o, p_o = banded_nw_main_diag(*pairs[k], radius, ap)
+        assert np.float32(s_o) == s[k] and p_o == p[k]

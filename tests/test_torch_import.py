@@ -12,7 +12,8 @@ PKG = os.path.join(ROOT, "usearch12_tpu_torch")
 def test_imports_with_jax_blocked():
     code = ("import sys; sys.modules['jax'] = None\n"
             "import usearch12_tpu_torch, usearch12_tpu_torch.cli, "
-            "usearch12_tpu_torch.commands, usearch12_tpu_torch.engine.batch\n"
+            "usearch12_tpu_torch.commands, usearch12_tpu_torch.engine.batch, "
+            "usearch12_tpu_torch.ops.banded_nw\n"
             "bad = [m for m in sys.modules if m.startswith(("
             "'usearch12_tpu.ops', 'usearch12_tpu.parallel', "
             "'usearch12_tpu.device_server'))]\n"

@@ -126,3 +126,20 @@ def test_holes_wider_than_the_kernel_run_on_host(contigs, monkeypatch):
     ds = _run_port(d, qf, tf, ["-blast6out", str(out)], monkeypatch)
     assert out.read_bytes() == ref[0]
     assert ds["device_cells"] > 0 and ds["host_cells"] > 0
+
+
+def test_no_engine_device_keeps_every_hole_on_host(contigs, monkeypatch):
+    """-no_engine_device: every hole runs in the host C kernel, as in the
+    JAX package, and neither kernel is launched."""
+    from usearch12_tpu_torch.ops import wavefront_nw as wnw
+    from usearch12_tpu_torch.ops import wavefront_trace as wtr
+    d, qf, tf, ref = contigs
+    out = d / "port_host.b6"
+    n_fwd, n_trace = wnw.wavefront_fwd.launches, wtr.wavefront_trace.launches
+    ds = _run_port(d, qf, tf, ["-blast6out", str(out), "-no_engine_device"],
+                   monkeypatch)
+    assert out.read_bytes() == ref[0]
+    assert ds["device_cells"] == 0 and ds["host_cells"] > 0
+    assert ds["dispatches"] == 0
+    assert (wnw.wavefront_fwd.launches, wtr.wavefront_trace.launches) == \
+        (n_fwd, n_trace)

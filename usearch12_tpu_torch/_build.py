@@ -1,7 +1,8 @@
 """Build the CUDA kernels of csrc/ and bind them with ctypes.
 
-The sources are compiled at first use with nvcc for Hopper (sm_90a) into
-one shared library with a plain C interface, under
+The sources are compiled at first use with nvcc for Hopper (sm_90a), one
+nvcc process per source, all started together, and linked into one
+shared library with a plain C interface, under
 build/usearch12_tpu_torch/ at the root of the checkout.  The library's
 name carries a hash of the sources and flags, so an edited source
 builds anew and an unchanged one is reused.  A failed build raises:
@@ -23,7 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / \
     "usearch12_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _lib = None
@@ -60,17 +61,24 @@ def build() -> Path:
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                            *map(str, cu)], capture_output=True, text=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, f.stem + ".o") for f in cu]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, str(f)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for f, o in zip(cu, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [f"{f.name}:\n{log}" for f, p, log in zip(cu, procs, logs)
+                  if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        out = os.path.join(tmp, so.name)
+        r = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", out, *objs],
+                           capture_output=True, text=True)
         if r.returncode != 0:
-            raise RuntimeError("nvcc failed:\n" + r.stdout + r.stderr)
-        os.replace(tmp, so)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            raise RuntimeError("nvcc link failed:\n" + r.stdout + r.stderr)
+        os.replace(out, so)
     return so
 
 
@@ -96,6 +104,21 @@ def load_library():
                 vp, i32,                       # gp, n_pairs
                 vp, vp, i32, vp,               # scores, ops, stride, lens
                 vp]                            # stream
+            lib.banded_nw_fwd_launch.restype = i32
+            lib.banded_nw_fwd_launch.argtypes = [
+                vp, vp, i32, i32,              # a_let, b_let, amax, bmax
+                vp, vp, vp, vp,                # la, lb, dlo, bw
+                vp, f32, f32,                  # gp, match, mismatch
+                i32, i32,                      # n_pairs, width
+                vp, vp, vp,                    # tb, mlast, dlb
+                vp]                            # stream
+            lib.banded_nw_chase_launch.restype = i32
+            lib.banded_nw_chase_launch.argtypes = [
+                vp, i32, vp, i32, vp,          # tb, amax, mlast, width, dlb
+                vp, vp, vp, vp,                # la, lb, dlo, bw
+                vp, i32,                       # gp, n_pairs
+                vp, vp, vp, vp, i32,           # scores, states, tblast, ops,
+                vp]                            # stride, stream
             lib.wavefront_cuda_error_string.restype = ctypes.c_char_p
             lib.wavefront_cuda_error_string.argtypes = [i32]
             _lib = lib

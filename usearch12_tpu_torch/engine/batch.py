@@ -11,6 +11,8 @@ device server and its per-window device-loss fallback have no
 counterpart here.  Holes whose band is wider than BW_DEV_MAX, and
 batches the dispatch gate keeps on the host, run in the host C kernel
 as in the JAX engine, and the cells of each are counted in dev_stats.
+With -no_engine_device every hole runs in the host C kernel, as the JAX
+package does when its device factory returns no device.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ class TorchBatchEngine(BatchEngine):
         super().__init__(cmd, db, index=index)
         o = options()
         self.device = device
+        self.holes_on_host = o.flag("no_engine_device")
         self._factory_tried = True
         self.dev_min_cells = int(o.str("dev_min_cells")) \
             if o.filled("dev_min_cells") else 2048
@@ -96,7 +99,7 @@ class TorchBatchEngine(BatchEngine):
         dev_ok = np.abs(alen.astype(np.int64) - blen) + 2 * r + 1 \
             <= self.BW_DEV_MAX
         use_device = False
-        if self.ap.nucleo and dev_ok.any():
+        if self.ap.nucleo and dev_ok.any() and not self.holes_on_host:
             if self.dev_batch_min_cells is not None:
                 use_device = total_cells >= self.dev_batch_min_cells
             elif self.perf is not None:

@@ -226,10 +226,9 @@ def pair_geometry(pairs: Sequence, band_radius: int):
     return la, lb, dlo, bw
 
 
-def pack_launch(pairs: Sequence, la, lb, dlo, bw,
-                device: torch.device) -> WaveLaunch:
-    """Letters and geometry of (at least one) pairs as wavefront_fwd's
-    inputs."""
+def pack_letters(pairs: Sequence, la, lb) -> Tuple[np.ndarray, np.ndarray]:
+    """(P, max la) and (P, max lb) uint8 letter classes of the pairs' a
+    and b, padded with class 4."""
     m = len(pairs)
     amax, bmax = int(la.max()), int(lb.max())
     a_let = np.full((m, amax), 4, np.uint8)
@@ -238,6 +237,15 @@ def pack_launch(pairs: Sequence, la, lb, dlo, bw,
         np.concatenate([np.asarray(p[0]) for p in pairs]))
     b_let[np.arange(bmax)[None, :] < lb[:, None]] = letters(
         np.concatenate([np.asarray(p[1]) for p in pairs]))
+    return a_let, b_let
+
+
+def pack_launch(pairs: Sequence, la, lb, dlo, bw,
+                device: torch.device) -> WaveLaunch:
+    """Letters and geometry of (at least one) pairs as wavefront_fwd's
+    inputs."""
+    m = len(pairs)
+    a_let, b_let = pack_letters(pairs, la, lb)
     nbytes = tb_nbytes(la, lb, bw)
     tb_off = np.zeros(m, np.int64)
     np.cumsum(nbytes[:-1], out=tb_off[1:])

@@ -24,9 +24,23 @@ Phases, each printing a line, any failure exits non-zero:
      32 targets of 24,150 nt), whose blast6 bytes must equal those of
      `python -m usearch12_tpu.cli ... -no_engine_device`, the JAX
      package's host C path, with the device and host cells and both
-     kernels' launch counts of that run.
-The line before the last is the kernel summary as JSON, the last line
-{"ok": true, "device": {...}}.
+     kernels' launch counts of that run;
+  6. sintax kernels: sintax_pick_hist and sintax_boot_select bit for bit
+     against their plain versions on one full chunk of the SINTAX workload
+     (128 jobs x 100 boots x 256 word slots against the 60,000-target
+     incidence), at m = 32, at m = 200 (> 127) and at m = 0 (every target
+     ties), with the gather and the product timed beside them;
+  7. sintax: the JAX package's SINTAX device workload (bench.py's
+     _gen_sintax_big, seed 17, not cut: 60,000 targets of 248 nt, 1,500
+     queries, -strand both -randseed 1) through the port's command line
+     with -sintax_device, in this process, whose -tabbedout bytes must
+     equal those of `python -m usearch12_tpu.cli ... -no_sintax_device`,
+     the JAX package's host path; then the auto gate's measurement (the
+     port's command line as a fresh process, host and card twice each, at
+     5,000, 20,000, 60,000 and 90,000 targets, with the start-up costs
+     of such a process) and one profiled card run.
+Each phase prints its seconds.  The line before the last is the kernel
+summary as JSON, the last line {"ok": true, "device": {...}}.
 """
 
 import json
@@ -78,6 +92,28 @@ def gen_longseq(qf, tf, n=32, seed=21):
                 t[flip] = conv[rng.integers(0, 4, int(flip.sum()))]
                 segs.append(t)
             f.write(f">lq{i}\n{assemble(segs).tobytes().decode()}\n")
+
+
+def gen_sintax(dbf, qf, n_targets=60000, n_queries=1500, seed=17):
+    """The SINTAX device workload (recipe of bench.py's _gen_sintax_big):
+    248-nt targets with taxonomy d:D{i%5},p:P{i%40},g:G{i%400}; each query
+    is target (13 i) % n_targets with 8 substitutions."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    conv = np.frombuffer(b"ACGT", np.uint8)
+    seqs = []
+    with open(dbf, "w") as f:
+        for i in range(n_targets):
+            s = conv[rng.integers(0, 4, 248)]
+            seqs.append(s)
+            f.write(f">r{i};tax=d:D{i % 5},p:P{i % 40},g:G{i % 400};\n"
+                    f"{s.tobytes().decode()}\n")
+    with open(qf, "w") as f:
+        for i in range(n_queries):
+            s = seqs[(i * 13) % len(seqs)].copy()
+            pos = rng.integers(0, len(s), 8)
+            s[pos] = conv[rng.integers(0, 4, 8)]
+            f.write(f">q{i}\n{s.tobytes().decode()}\n")
 
 
 def kernel_pairs(rng, n, length, sub_rate=0.1, indel=8):
@@ -252,6 +288,293 @@ def check_banded(tag, pairs, radius, ap, dev, reps):
             "chase_err": float((ch[0] - ch_plain[0]).abs().max())}
 
 
+def lcg_stream(n, seed=1):
+    """The first n draws of SINTAX's per-query boot LCG
+    (src/sintaxsearcher.cpp:77-82), seeded at -randseed."""
+    import numpy as np
+    out, r = np.empty(n, np.uint32), seed
+    for k in range(n):
+        r = (1664525 * r + 1013904223) & 0xFFFFFFFF
+        out[k] = r
+    return out
+
+
+def sintax_chunks(dbf, qf, d):
+    """One full chunk of real jobs, as the port's classifier hands it to
+    TorchBootEngine.run_chunk on the first 64 queries (128 jobs, both
+    strands), with the engine that holds the DB's incidence; then the
+    same chunk at m = 200 and at m = 0."""
+    import numpy as np
+    from usearch12_tpu_torch import cli
+    from usearch12_tpu_torch.amplicon import sintax_device as sd
+    q64 = os.path.join(d, "q64.fa")
+    with open(qf) as f, open(q64, "w") as out:
+        out.writelines(f.readlines()[:128])
+    seen = []
+    orig = sd.TorchBootEngine.run_chunk
+
+    def grab(engine, *args):
+        seen.append((engine, args))
+        return orig(engine, *args)
+
+    sd.TorchBootEngine.run_chunk = grab
+    try:
+        rc = cli.main(["-sintax", q64, "-db", dbf, "-strand", "both",
+                       "-randseed", "1", "-quiet", "-sintax_device"])
+    finally:
+        sd.TorchBootEngine.run_chunk = orig
+    if rc != 0 or len(seen) != 1:
+        fail(f"sintax chunk capture: exit {rc}, {len(seen)} chunks")
+    engine, (words, nuw, m, stream, rr) = seen[0]
+    if words.shape[0] != 128 or int(m.min()) != 32:
+        fail(f"sintax chunk capture: {words.shape} jobs, m {set(m)}")
+    chunks = [(32, words, nuw, m, stream, rr)]
+    for m_val, mmax in ((200, 256), (0, 8)):
+        chunks.append((m_val, words, nuw, np.full_like(m, m_val),
+                       lcg_stream(engine.B * mmax), rr))
+    return engine, chunks
+
+
+def check_sintax_kernels(engine, chunks, dev):
+    """The SINTAX kernels against their plain versions on full chunks;
+    returns times and errors of the m = 32 chunk and the worst error."""
+    import torch
+    from usearch12_tpu_torch.ops import sintax_boot as sb
+    out = {"hist_err": 0.0, "select_err": 0.0}
+    for m_val, words, nuw, m, stream, rr in chunks:
+        words_d, nuw_d, m_d, stream_d, rr_d = (
+            torch.from_numpy(x.view("int32")).to(dev)
+            for x in (words, nuw, m, stream, rr))
+        dtype = sb.product_dtype(dev, m_val * max(engine.inc_absmax, 1))
+        args = (nuw_d, m_d, stream_d, engine.B, words.shape[1], dtype)
+        hist_ms, P = cuda_ms(lambda: sb.pick_hist(*args), 5)
+        hist_plain_ms, P_plain = cuda_ms(lambda: sb.pick_hist_plain(*args), 1)
+        if not bit_equal(P, P_plain):
+            fail(f"sintax m={m_val}: sintax_pick_hist differs from its "
+                 "plain version")
+        gather_ms, mq = cuda_ms(lambda: sb.gather_rows(
+            engine.w_mat, words_d, nuw_d, dtype), 3)
+        prod_ms, U = cuda_ms(lambda: sb.boot_product(P, mq), 3)
+        del mq
+        sel_ms, sel = cuda_ms(lambda: sb.boot_select(U, rr_d), 5)
+        sel_plain_ms, sel_plain = cuda_ms(
+            lambda: sb.boot_select_plain(U, rr_d), 1)
+        for name, x, y in zip(("winner", "top"), sel, sel_plain):
+            if not bit_equal(x, y):
+                fail(f"sintax m={m_val}: sintax_boot_select {name} differs "
+                     "from its plain version")
+        top = int(sel[1].max())
+        if m_val == 0 and top != 0:
+            fail("sintax m=0: non-zero top")
+        out["hist_err"] = max(out["hist_err"],
+                              float((P - P_plain).abs().max()))
+        out["select_err"] = max(out["select_err"], float(max(
+            (x - y).abs().max() for x, y in zip(sel, sel_plain))))
+        print(f"sintax kernels m={m_val}: {tuple(U.shape)} {dtype}; "
+              f"sintax_pick_hist {hist_ms:.3f} ms, plain {hist_plain_ms:.3f}"
+              f" ms; gather {gather_ms:.3f} ms; product {prod_ms:.3f} ms; "
+              f"sintax_boot_select {sel_ms:.3f} ms, plain {sel_plain_ms:.3f}"
+              f" ms; top max {top}; bit-equal to plain", flush=True)
+        if m_val == 32:
+            out.update(hist_ms=hist_ms, hist_plain_ms=hist_plain_ms,
+                       sel_ms=sel_ms, sel_plain_ms=sel_plain_ms)
+        del U, P, P_plain, sel_plain
+    return out
+
+
+def sintax_run(args, stats=None, profile=False):
+    """Wall seconds of one in-process sintax run through the port's
+    command line, with host-side stage times (classify_window and the
+    chunks' run_chunk, synchronised) and, if asked, the device time by
+    kernel from torch.profiler."""
+    import torch
+    from usearch12_tpu_torch import cli
+    from usearch12_tpu_torch.amplicon import sintax_device as sd
+    stage = {"classify_window": 0.0, "run_chunk": 0.0}
+    orig = {"classify_window": sd.SintaxTorchClassifier.classify_window,
+            "run_chunk": sd.TorchBootEngine.run_chunk}
+
+    def timed(name):
+        def f(*a, **k):
+            t0 = time.perf_counter()
+            r = orig[name](*a, **k)
+            stage[name] += time.perf_counter() - t0
+            return r
+        return f
+
+    sd.SintaxTorchClassifier.classify_window = timed("classify_window")
+    sd.TorchBootEngine.run_chunk = timed("run_chunk")
+    if stats:
+        os.environ["USEARCH_DEVICE_STATS"] = stats
+    prof = None
+    try:
+        if profile:
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+            prof.__enter__()
+        t0 = time.perf_counter()
+        rc = cli.main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        if prof is not None:
+            prof.__exit__(None, None, None)
+        sd.SintaxTorchClassifier.classify_window = orig["classify_window"]
+        sd.TorchBootEngine.run_chunk = orig["run_chunk"]
+        os.environ.pop("USEARCH_DEVICE_STATS", None)
+    if rc != 0:
+        fail(f"usearch12_tpu_torch.cli -sintax exited {rc}")
+    kernels = None
+    if prof is not None:
+        def dev_us(e):
+            return getattr(e, "device_time_total",
+                           getattr(e, "cuda_time_total", 0.0))
+        evs = sorted((e for e in prof.key_averages() if dev_us(e) > 0
+                      and not e.key.startswith("aten::")),
+                     key=dev_us, reverse=True)
+        kernels = {"device_ms": round(sum(map(dev_us, evs)) / 1000, 3),
+                   "top": [(e.key[:50], round(dev_us(e) / 1000, 3), e.count)
+                           for e in evs[:8]]}
+    return wall, stage, kernels
+
+
+def gate_crossover(gate):
+    """The target count at which host and card take equal time: host -
+    card interpolated linearly between measured sizes (n, host s, card s),
+    or extrapolated from the two nearest sizes when one side wins at
+    every size; nan when the data give none."""
+    pts = [(n, h - c) for n, h, c in gate]
+    pairs = list(zip(pts, pts[1:]))
+    for (n0, d0), (n1, d1) in pairs:
+        if d0 <= 0 < d1:
+            return n0 - d0 * (n1 - n0) / (d1 - d0)
+    (n0, d0), (n1, d1) = pairs[0] if pts[0][1] > 0 else pairs[-1]
+    if d1 > d0:
+        return n0 - d0 * (n1 - n0) / (d1 - d0)
+    return float("nan")
+
+
+def phase_sintax(d, dev, phase_done):
+    """Phases 6 and 7 in directory d; returns the kernel check's numbers
+    and the launch counts of the main run."""
+    import torch
+    from usearch12_tpu_torch.ops import sintax_boot as sb
+
+    # 6. the SINTAX kernels on full chunks of the workload
+    t_phase = time.perf_counter()
+    sizes_of = {}
+    for n in (60000, 90000, 20000, 5000):
+        dbf, qf = (os.path.join(d, f"sx{n}_{x}.fa") for x in ("db", "q"))
+        gen_sintax(dbf, qf, n)
+        sizes_of[n] = (dbf, qf)
+    dbf, qf = sizes_of[60000]
+    t0 = time.perf_counter()
+    engine, chunks = sintax_chunks(dbf, qf, d)
+    print(f"sintax chunk: 128 jobs x 256 slots from the port's run on 64 "
+          f"queries in {time.perf_counter() - t0:.2f} s; incidence "
+          f"{tuple(engine.w_mat.shape)} int8, max {engine.inc_absmax}",
+          flush=True)
+    sx = check_sintax_kernels(engine, chunks, dev)
+    del engine, chunks
+    torch.cuda.empty_cache()
+    phase_done(6, t_phase)
+
+    # 7. the workload through the port's command line against the JAX
+    # package's host path, then the gate's measurement
+    t_phase = time.perf_counter()
+    base = ["-sintax", qf, "-db", dbf, "-strand", "both", "-randseed", "1",
+            "-quiet"]
+    ref, port = os.path.join(d, "ref.tab"), os.path.join(d, "port.tab")
+    stats = os.path.join(d, "sintax_stats.jsonl")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "usearch12_tpu.cli"] + base
+                       + ["-no_sintax_device", "-tabbedout", ref], cwd=HERE,
+                       env=dict(os.environ, JAX_PLATFORMS="cpu"),
+                       capture_output=True, text=True, timeout=900)
+    t_host = time.perf_counter() - t0
+    if r.returncode != 0:
+        fail(f"sintax host judge exited {r.returncode}: {r.stderr[-2000:]}")
+    sb.pick_hist.launches = 0
+    sb.boot_select.launches = 0
+    t_port, stage, _ = sintax_run(base + ["-sintax_device", "-tabbedout",
+                                          port], stats)
+    launches = {"sintax_pick_hist": sb.pick_hist.launches,
+                "sintax_boot_select": sb.boot_select.launches}
+    with open(ref, "rb") as f:
+        ref_b = f.read()
+    with open(port, "rb") as f:
+        port_b = f.read()
+    with open(stats) as f:
+        rec = json.loads(f.read().splitlines()[-1])
+    n_rows = ref_b.count(b"\n")
+    with open(qf) as f:
+        n_queries = f.read().count(">")
+    print(f"sintax: 60,000 targets x 1,500 queries, -strand both; JAX host "
+          f"path (subprocess) {t_host:.2f} s, port on the card "
+          f"{t_port:.2f} s (classify_window {stage['classify_window']:.2f} "
+          f"s, run_chunk {stage['run_chunk']:.2f} s); stats {rec}; "
+          f"launches {launches}; {n_rows} rows, tabbedout "
+          f"{'equal' if ref_b == port_b else 'DIFFERENT'}", flush=True)
+    if ref_b != port_b or n_rows != n_queries:
+        fail("sintax -tabbedout of the port differs from the host path")
+    if not rec["device"]:
+        fail("sintax did not run on the card")
+    if min(launches.values()) <= 0:
+        fail(f"a SINTAX kernel was not launched on the main path: "
+             f"{launches}")
+
+    # the auto gate: host and card as fresh processes of the port's
+    # command line, as a user runs it, at three DB sizes, in the order
+    # host, card, card, host
+    for code in ("import usearch12_tpu_torch.cli", "import torch",
+                 "import torch; torch.zeros(1, device='cuda')"):
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-c", code], cwd=HERE, check=True,
+                       timeout=300)
+        print(f"sintax gate: python -c \"{code}\" "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    gate = []
+    for n in sorted(sizes_of):
+        g_db, g_q = sizes_of[n]
+        secs = {"-no_sintax_device": [], "-sintax_device": []}
+        outs = []
+        for flag in ("-no_sintax_device", "-sintax_device", "-sintax_device",
+                     "-no_sintax_device"):
+            outs.append(os.path.join(d, f"gate{n}_{len(outs)}.tab"))
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "usearch12_tpu_torch.cli", "-sintax",
+                 g_q, "-db", g_db, "-strand", "both", "-randseed", "1",
+                 "-quiet", flag, "-tabbedout", outs[-1]],
+                cwd=HERE, capture_output=True, text=True, timeout=600)
+            secs[flag].append(time.perf_counter() - t0)
+            if r.returncode != 0:
+                fail(f"sintax gate {n} {flag} exited {r.returncode}: "
+                     f"{r.stderr[-2000:]}")
+        tabs = set()
+        for out in outs:
+            with open(out, "rb") as f:
+                tabs.add(f.read())
+        if len(tabs) != 1:
+            fail(f"sintax gate {n}: host and card -tabbedout differ")
+        host_s, card_s = (secs[k] for k in ("-no_sintax_device",
+                                           "-sintax_device"))
+        gate.append((n, sum(host_s) / 2, sum(card_s) / 2))
+        print(f"sintax gate: {n} targets; host {host_s[0]:.2f}, "
+              f"{host_s[1]:.2f} s, card {card_s[0]:.2f}, {card_s[1]:.2f} s; "
+              "tabbedout equal", flush=True)
+    print(f"sintax gate: crossover at {gate_crossover(gate):.0f} targets",
+          flush=True)
+    wall, stage, prof = sintax_run(base + ["-sintax_device", "-tabbedout",
+                                           port], profile=True)
+    print(f"sintax profile: wall {wall:.2f} s, classify_window "
+          f"{stage['classify_window']:.2f} s, run_chunk "
+          f"{stage['run_chunk']:.2f} s; {json.dumps(prof)}", flush=True)
+    phase_done(7, t_phase)
+    return sx, launches
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "usearch12_tpu_torch")):
         fail("run from a checkout of the repository (no "
@@ -267,6 +590,12 @@ def main():
     from usearch12_tpu_torch.ops import wavefront_nw as wnw
     from usearch12_tpu_torch.ops import wavefront_trace as wtr
 
+    t_start = time.perf_counter()
+
+    def phase_done(n, t0):
+        print(f"phase {n}: {time.perf_counter() - t0:.1f} s (run "
+              f"{time.perf_counter() - t_start:.1f} s)", flush=True)
+
     # 1. device
     dev = resolve_device("cuda:0")
     kind = torch.cuda.get_device_name(0)
@@ -274,6 +603,7 @@ def main():
     print(f"device: {kind}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
     print(smi, flush=True)
+    phase_done(1, t_start)
 
     # 2. build
     cached = _build.library_path().exists()
@@ -282,8 +612,10 @@ def main():
     print(f"build: {_build.library_path().name} "
           f"{'reused' if cached else 'built'} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    phase_done(2, t0)
 
     # 3. kernels against their plain versions
+    t_phase = time.perf_counter()
     ap = wnw.nucleo_params(-10.0, -1.0, -0.5, -0.5)     # the defaults
     ap_nd = wnw.nucleo_params(-10.3, -1.1, -0.7, -0.4)  # non-dyadic
     rng = np.random.default_rng(7)
@@ -291,6 +623,7 @@ def main():
     check_kernels("250nt", pairs_a, 16, ap, dev, 5)
     big = check_kernels("3kb", kernel_pairs(rng, 512, 3000, indel=40), 120,
                         ap_nd, dev, 3)
+    phase_done(3, t_phase)
 
     # 4. the device oracle: its kernels against their plain versions, then
     # BandedNWDevice judging the hole DP kernels on every pair of shape (a)
@@ -321,8 +654,10 @@ def main():
         fail(f"BandedNWDevice and TorchWaveAligner differ on {n_diff} pairs")
     if min(orc_launches.values()) <= 0:
         fail(f"a kernel was not launched on the oracle path: {orc_launches}")
+    phase_done(4, t_phase)
 
     # 5. the slice: usearch_global on the long-contig workload
+    t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
         qf, tf = os.path.join(d, "lq.fa"), os.path.join(d, "lt.fa")
         gen_longseq(qf, tf)
@@ -372,6 +707,12 @@ def main():
             fail("no hole cells ran on the device")
         if min(launches.values()) <= 0:
             fail(f"a kernel was not launched on the main path: {launches}")
+    phase_done(5, t_phase)
+    del pairs_a, s_orc, p_orc, s_wave, p_wave
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as d:
+        sx, sx_launches = phase_sintax(d, dev, phase_done)
 
     print(json.dumps({"kernels": [
         {"name": "wavefront_fwd", "route": "cuda",
@@ -397,7 +738,19 @@ def main():
          "replaces": "usearch12_tpu/ops/banded_nw.py:569",
          "launches": orc_launches["banded_nw_chase"],
          "max_abs_err": max(orc["chase_err"], orc_wide["chase_err"]),
-         "ms": orc["chase_ms"], "plain_ms": orc["chase_plain_ms"]}]}))
+         "ms": orc["chase_ms"], "plain_ms": orc["chase_plain_ms"]},
+        {"name": "sintax_pick_hist", "route": "cuda",
+         "source": "usearch12_tpu_torch/csrc/sintax_boot.cu",
+         "replaces": "usearch12_tpu/amplicon/sintax_device.py:132",
+         "launches": sx_launches["sintax_pick_hist"],
+         "max_abs_err": sx["hist_err"], "ms": sx["hist_ms"],
+         "plain_ms": sx["hist_plain_ms"]},
+        {"name": "sintax_boot_select", "route": "cuda",
+         "source": "usearch12_tpu_torch/csrc/sintax_boot.cu",
+         "replaces": "usearch12_tpu/amplicon/sintax_device.py:156",
+         "launches": sx_launches["sintax_boot_select"],
+         "max_abs_err": sx["select_err"], "ms": sx["sel_ms"],
+         "plain_ms": sx["sel_plain_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

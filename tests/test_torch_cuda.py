@@ -121,3 +121,42 @@ def test_banded_nw_kernels_match_plain_versions(card, radius, pen):
     for k in range(0, len(pairs), 8):
         s_o, p_o = banded_nw_main_diag(*pairs[k], radius, ap)
         assert np.float32(s_o) == s[k] and p_o == p[k]
+
+
+@pytest.mark.parametrize("m_val,mmax,t,dtype", [
+    (32, 32, 500, torch.float16), (200, 256, 500, torch.float32),
+    (0, 8, 300, torch.float16), (32, 32, 1, torch.float32)])
+def test_sintax_kernels_match_plain_versions(card, m_val, mmax, t, dtype):
+    from usearch12_tpu_torch.amplicon.sintax_device import TorchBootEngine
+    from usearch12_tpu_torch.ops import sintax_boot as sb
+    rng = np.random.default_rng(m_val + t)
+    cq, boots, uwmax, v = 16, 20, 32, 256
+    sizes = rng.integers(0, 6, v)
+    posts = np.concatenate([rng.choice(t, min(int(s), t), replace=False)
+                            for s in sizes]).astype(np.int32)
+    sizes = np.array([min(int(s), t) for s in sizes])
+    nuw = rng.integers(8, uwmax + 1, cq).astype(np.int32)
+    words = rng.integers(0, v, (cq, uwmax)).astype(np.int32)
+    m = np.full(cq, m_val, np.int32)
+    stream = rng.integers(0, 2 ** 32, boots * mmax,
+                          dtype=np.uint64).astype(np.uint32)
+    rr = rng.integers(0, 2 ** 32, (cq, boots),
+                      dtype=np.uint64).astype(np.uint32)
+    up = lambda x: torch.from_numpy(x.view(np.int32)).to(card)  # noqa: E731
+    n0 = (sb.pick_hist.launches, sb.boot_select.launches)
+    P = sb.pick_hist(up(nuw), up(m), up(stream), boots, uwmax, dtype)
+    assert torch.equal(P, sb.pick_hist_plain(up(nuw), up(m), up(stream),
+                                             boots, uwmax, dtype))
+    eng = TorchBootEngine(v, t, sizes, posts, boots, card)
+    U = sb.boot_product(P, sb.gather_rows(eng.w_mat, up(words), up(nuw),
+                                          dtype))
+    got = sb.boot_select(U, up(rr))
+    want = sb.boot_select_plain(U, up(rr))
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert (sb.pick_hist.launches, sb.boot_select.launches) == \
+        (n0[0] + 1, n0[1] + 1)
+    cpu = TorchBootEngine(v, t, sizes, posts, boots, torch.device("cpu"))
+    w_cpu, t_cpu = cpu.run_chunk(words, nuw, m, stream, rr)
+    w_card, t_card = eng.run_chunk(words, nuw, m, stream, rr)
+    assert np.array_equal(w_cpu, w_card) and np.array_equal(t_cpu, t_card)

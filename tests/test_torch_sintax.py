@@ -1,0 +1,248 @@
+"""SINTAX's bootstraps in usearch12_tpu_torch on the CPU (the kernels'
+plain PyTorch versions) against the JAX package: the boot step against
+BootEngine.run_chunk (jax on the CPU), classify_window against the host
+classifier, and -tabbedout bytes of both command lines."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import usearch12_tpu.cli as jax_cli
+import usearch12_tpu_torch.cli as port_cli
+from tests.test_sintax_device import _gen
+from usearch12_tpu.amplicon.sintax import GlobalRand, SintaxClassifier
+from usearch12_tpu.amplicon.sintax_device import (BootEngine,
+                                                  SintaxDeviceClassifier)
+from usearch12_tpu.commands import load_db
+from usearch12_tpu.config import options
+from usearch12_tpu.index.udb import UDBIndex
+from usearch12_tpu_torch.amplicon import sintax as port_sintax
+from usearch12_tpu_torch.amplicon.sintax_device import (
+    SintaxTorchClassifier, TorchBootEngine)
+from usearch12_tpu_torch.ops import sintax_boot as sb
+
+CPU = torch.device("cpu")
+
+
+def _csr(rng, v, t, max_size=12):
+    sizes = rng.integers(0, max_size, v)
+    posts = [np.sort(rng.choice(t, min(int(s), t), replace=False))
+             for s in sizes]
+    sizes = np.array([len(p) for p in posts], np.int64)
+    return sizes, np.concatenate(posts).astype(np.int32)
+
+
+# (case, T, m per job (None: 1..24 per job), mmax, live jobs of the chunk)
+CASES = {
+    "default_m32": (40, 32, 32, 8),
+    "m_over_127": (40, 200, 256, 8),
+    "divide_mode": (40, None, 32, 8),
+    "m_zero": (40, 0, 8, 8),
+    "one_target": (1, 32, 32, 8),
+    "padded_rows": (40, 32, 32, 3),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_boot_step_equals_jax_run_chunk(case):
+    """Winners and tops of one chunk equal the JAX step's, as integers."""
+    t, m_val, mmax, live = CASES[case]
+    rng = np.random.default_rng(sorted(CASES).index(case))
+    v, boots, cq, uwmax = 64, 20, 8, 16
+    sizes, posts = _csr(rng, v, t)
+    words = np.zeros((cq, uwmax), np.int32)
+    nuw = np.ones(cq, np.int32)              # padding as the JAX host pads
+    m = np.ones(cq, np.int32)
+    rr = np.zeros((cq, boots), np.uint32)
+    for k in range(live):
+        nuw[k] = rng.integers(8, uwmax + 1)
+        words[k, :nuw[k]] = rng.choice(v, nuw[k], replace=False)
+        m[k] = rng.integers(1, 25) if m_val is None else m_val
+        rr[k] = rng.integers(0, 2 ** 32, boots, dtype=np.uint64)
+    stream = rng.integers(0, 2 ** 32, boots * mmax,
+                          dtype=np.uint64).astype(np.uint32)
+    want = BootEngine(v, t, sizes, posts, boots).run_chunk(
+        words, nuw, m, stream, rr)
+    eng = TorchBootEngine(v, t, sizes, posts, boots, CPU)
+    got = eng.run_chunk(words, nuw, m, stream, rr)
+    assert got[0].dtype == np.int32 and got[1].dtype == np.int32
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    if m_val == 0:
+        assert not got[1].any()
+    if t == 1:
+        assert not got[0].any()
+
+
+def test_incidence_is_additive_int8():
+    """A target posted twice under one word counts twice (the JAX build's
+    scatter-add), and the product type stays exact."""
+    sizes = np.array([3, 0, 1], np.int64)
+    posts = np.array([1, 1, 0, 2], np.int32)
+    eng = TorchBootEngine(3, 3, sizes, posts, 4, CPU)
+    assert eng.w_mat.tolist() == [[1, 2, 0], [0, 0, 0], [0, 0, 1]]
+    assert eng.inc_absmax == 2
+    assert sb.product_dtype(torch.device("cuda"), 1024 * 2) == torch.float16
+    assert sb.product_dtype(torch.device("cuda"), 2049) == torch.float32
+    assert sb.product_dtype(CPU, 10) == torch.float32
+    with pytest.raises(ValueError):
+        sb.product_dtype(CPU, (1 << 24) + 1)
+
+
+def test_wrappers_refuse_bad_chunks():
+    """The kernels index unchecked: the wrappers check first."""
+    nuw = torch.tensor([20], dtype=torch.int32)
+    m = torch.tensor([4], dtype=torch.int32)
+    stream = torch.zeros(40, dtype=torch.int32)
+    with pytest.raises(ValueError, match="nuw"):
+        sb.pick_hist(nuw, m, stream, 10, 16, torch.float32)
+    with pytest.raises(ValueError, match="stream"):
+        sb.pick_hist(nuw, m, stream[:5], 10, 32, torch.float32)
+    with pytest.raises(ValueError):
+        sb.boot_select(torch.zeros((2, 3, 4)),
+                       torch.zeros((2, 4), dtype=torch.int32))
+
+
+def _classifier(dbf):
+    db, index = load_db(dbf)
+    if index is None:
+        index = UDBIndex.from_seqdb(db)
+    return db, SintaxClassifier(db, index, GlobalRand(1))
+
+
+@pytest.mark.parametrize("both", [True, False])
+def test_classify_window_equals_host(tmp_path, both):
+    dbf, qf = _gen(tmp_path, n_db=150, n_q=40)
+    from usearch12_tpu.io.fastx import read_fastx
+    seqs = [s for _, s, _ in read_fastx(qf)]
+    # revcomp of a few queries, so that the minus strand wins some votes
+    from usearch12_tpu.alpha import revcomp
+    seqs = [revcomp(s) if k % 3 == 0 else s for k, s in enumerate(seqs)]
+    options().set("randseed", "1")
+    _, host = _classifier(dbf)
+    _, dev = _classifier(dbf)
+    want = host.classify_window(seqs, both)
+    got = SintaxTorchClassifier(dev, CPU).classify_window(seqs, both)
+    assert got == want
+    assert {r[0] for r in got} == ({"+", "-"} if both else {"+"})
+
+
+def test_ineligible_gives_the_reason_usable_gives(tmp_path, monkeypatch):
+    dbf, _ = _gen(tmp_path, n_db=20, n_q=1)
+    _, cls = _classifier(dbf)
+    assert port_sintax.ineligible(cls) is None
+    assert SintaxTorchClassifier.usable(cls)
+    monkeypatch.setattr(SintaxDeviceClassifier, "MAX_INCIDENCE_BYTES",
+                        cls.index.params.slot_count * 19)
+    assert port_sintax.ineligible(cls).startswith("incidence of")
+    assert not SintaxTorchClassifier.usable(cls)
+    options().set("self", True)
+    assert port_sintax.ineligible(cls) == "-self"
+
+
+@pytest.fixture(scope="module")
+def fixture_db(tmp_path_factory):
+    """tests/test_sintax_device.py's fixture: 300 targets, 120 queries."""
+    return _gen(tmp_path_factory.mktemp("sintax"))
+
+
+def _tabbed(cli, d, name, args, **kw):
+    out = str(d / name)
+    assert cli.main(args + ["-tabbedout", out], **kw) == 0
+    return open(out, "rb").read()
+
+
+@pytest.mark.parametrize("strand,extra", [("both", []), ("plus", []),
+                                          ("plus", ["-boot_subset", "/8"])])
+def test_tabbedout_equals_jax(fixture_db, tmp_path, monkeypatch, strand,
+                              extra):
+    """The port with -sintax_device writes the JAX host path's bytes and
+    the JAX device path's."""
+    dbf, qf = fixture_db
+    base = ["-sintax", qf, "-db", dbf, "-strand", strand, "-quiet",
+            "-randseed", "1"] + extra
+    stats = tmp_path / "stats.jsonl"
+    monkeypatch.setenv("USEARCH_DEVICE_STATS", str(stats))
+    sb.pick_hist.launches = sb.boot_select.launches = 0
+    port = _tabbed(port_cli, tmp_path, "port", base + ["-sintax_device"],
+                   device="cpu")
+    assert (sb.pick_hist.launches, sb.boot_select.launches) == (0, 0)
+    rec = json.loads(stats.read_text())
+    assert rec == {"cmd": "sintax", "device": True,
+                   "reason": "-sintax_device", "queries": 120,
+                   "targets": 300}
+    host = _tabbed(jax_cli, tmp_path, "host", base)
+    assert port == host and port.count(b"\n") == 120
+    assert port == _tabbed(jax_cli, tmp_path, "jax_dev",
+                           base + ["-sintax_device"])
+
+
+def _stats_of(tmp_path, monkeypatch, args):
+    stats = tmp_path / "stats.jsonl"
+    stats.unlink(missing_ok=True)
+    monkeypatch.setenv("USEARCH_DEVICE_STATS", str(stats))
+    _tabbed(port_cli, tmp_path, "out", args, device="cpu")
+    return json.loads(stats.read_text())
+
+
+def test_device_choice(fixture_db, tmp_path, monkeypatch):
+    """Auto takes the card at AUTO_MIN_TARGETS targets; the flags force
+    either way; every choice is recorded with its reason."""
+    dbf, qf = fixture_db
+    base = ["-sintax", qf, "-db", dbf, "-strand", "plus", "-quiet"]
+    host = _tabbed(jax_cli, tmp_path, "host", base)
+    rec = _stats_of(tmp_path, monkeypatch, base)
+    assert (rec["device"], rec["reason"]) == (
+        False, f"auto: 300 < {port_sintax.AUTO_MIN_TARGETS} targets")
+    monkeypatch.setattr(port_sintax, "AUTO_MIN_TARGETS", 300)
+    rec = _stats_of(tmp_path, monkeypatch, base)
+    assert (rec["device"], rec["reason"]) == (True,
+                                              "auto: 300 >= 300 targets")
+    assert (tmp_path / "out").read_bytes() == host
+    rec = _stats_of(tmp_path, monkeypatch, base + ["-no_sintax_device"])
+    assert (rec["device"], rec["reason"]) == (False, "-no_sintax_device")
+    assert (tmp_path / "out").read_bytes() == host
+
+
+def test_no_fallback_on_device_error(fixture_db, tmp_path, monkeypatch):
+    """A failure on the device path raises, whether the card was forced
+    or chosen by the auto gate."""
+    dbf, qf = fixture_db
+    base = ["-sintax", qf, "-db", dbf, "-strand", "plus", "-quiet",
+            "-tabbedout", str(tmp_path / "out")]
+
+    def broken(*_a, **_k):
+        raise RuntimeError("sintax_boot_select: CUDA error 700")
+
+    monkeypatch.setattr(TorchBootEngine, "run_chunk", broken)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        port_cli.main(base + ["-sintax_device"], device="cpu")
+    monkeypatch.setattr(port_sintax, "AUTO_MIN_TARGETS", 1)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        port_cli.main(base, device="cpu")
+
+
+def test_card_is_needed_only_when_chosen(fixture_db, tmp_path, monkeypatch):
+    dbf, qf = fixture_db
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    base = ["-sintax", qf, "-db", dbf, "-strand", "plus", "-quiet",
+            "-tabbedout", str(tmp_path / "out")]
+    assert port_cli.main(base) == 0
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_cli.main(base + ["-sintax_device"])
+    assert os.path.getsize(tmp_path / "out") > 0
+
+
+def test_per_query_path_equals_jax(fixture_db, tmp_path, monkeypatch):
+    """Without a window classifier (no native library, or a hashed word
+    index) both sintax commands classify one query at a time, with equal bytes."""
+    dbf, qf = fixture_db
+    monkeypatch.setattr(SintaxClassifier, "classify_window",
+                        lambda self, seqs, both: None)
+    base = ["-sintax", qf, "-db", dbf, "-strand", "both", "-quiet"]
+    port = _tabbed(port_cli, tmp_path, "port", base, device="cpu")
+    assert port == _tabbed(jax_cli, tmp_path, "host", base)
+    assert port.count(b"\n") == 120

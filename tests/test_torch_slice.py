@@ -100,20 +100,27 @@ def test_cli_needs_a_card_unless_cpu_is_passed(contigs, monkeypatch):
                       + ["-blast6out", "/dev/null"])
 
 
-@pytest.mark.parametrize("extra", [["-mesh", "2"], ["-device_rank"],
-                                   ["-use_serial_driver"],
-                                   ["-alnout", "/dev/null"]])
-def test_unported_paths_say_so(contigs, extra):
-    _, qf, tf, _ = contigs
-    with pytest.raises(SystemExit, match="not yet ported"):
-        port_cli.main(["-usearch_global", qf, "-db", tf] + COMMON
-                      + ["-blast6out", "/dev/null"] + extra, device="cpu")
+@pytest.mark.parametrize("extra", [["-mesh", "2"], ["-mesh", "auto"],
+                                   ["-device_rank"], ["-xprof", "trace"]])
+def test_unported_paths_say_so(contigs, capsys, extra):
+    """The device paths still to be ported exit 2 before any output."""
+    d, qf, tf, _ = contigs
+    out = d / "unported.b6"
+    assert port_cli.main(["-usearch_global", qf, "-db", tf] + COMMON
+                         + ["-blast6out", str(out)] + extra,
+                         device="cpu") == 2
+    assert f"{extra[0]}: not yet ported" in capsys.readouterr().err
+    assert not out.exists()
 
 
 def test_other_commands_exit_2(capsys):
-    assert port_cli.main(["-cluster_fast", "x.fa", "-id", "0.9"],
-                         device="cpu") == 2
-    assert "not yet ported" in capsys.readouterr().err
+    """-mesh on cluster_mt and -xprof on any command exit 2."""
+    assert port_cli.main(["-cluster_mt", "x.fa", "-id", "0.9", "-mesh",
+                          "2"], device="cpu") == 2
+    assert "-mesh: not yet ported" in capsys.readouterr().err
+    assert port_cli.main(["-cluster_fast", "x.fa", "-id", "0.9", "-xprof",
+                          "trace"], device="cpu") == 2
+    assert "-xprof: not yet ported" in capsys.readouterr().err
 
 
 def test_holes_wider_than_the_kernel_run_on_host(contigs, monkeypatch):

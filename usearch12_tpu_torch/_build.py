@@ -119,6 +119,15 @@ def load_library():
                 vp, i32,                       # gp, n_pairs
                 vp, vp, vp, vp, i32,           # scores, states, tblast, ops,
                 vp]                            # stride, stream
+            lib.sintax_pick_hist_launch.restype = i32
+            lib.sintax_pick_hist_launch.argtypes = [
+                vp, vp, vp, i32,               # nuw, m, stream, stream_len
+                i32, i32, i32, i32,            # boots, cq, uwmax, dtype
+                vp, vp]                        # P, stream
+            lib.sintax_boot_select_launch.restype = i32
+            lib.sintax_boot_select_launch.argtypes = [
+                vp, i32, vp, i32, i32,         # U, dtype, rr, rows, T
+                vp, vp, vp]                    # winner, top, stream
             lib.wavefront_cuda_error_string.restype = ctypes.c_char_p
             lib.wavefront_cuda_error_string.argtypes = [i32]
             _lib = lib

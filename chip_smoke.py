@@ -2,15 +2,17 @@
 """Smoke run of usearch12_tpu_torch on one CUDA card.
 
     python3 chip_smoke.py          # from the root of a checkout
+    python3 chip_smoke.py --against DIR   # also time DIR's wavefront_fwd
 
 Phases, each printing a line, any failure exits non-zero:
   1. device: the card's name, and its name and power limit from nvidia-smi;
   2. build: the CUDA kernels of usearch12_tpu_torch/csrc with nvcc;
   3. kernels: the hole DP kernels (wavefront_fwd, wavefront_trace)
-     against their plain PyTorch versions on the card,
-     bit for bit, at 65,536 pairs of 250 nt (band radius 16) and 512
-     pairs of 3 kb (band radius 120, non-dyadic gap penalties), and a
-     256-pair subsample against the host C kernel nw_band;
+     against their plain PyTorch versions on the card, bit for bit, at
+     (a) 65,536 pairs of 250 nt (band radius 16), (b) 512 pairs of 3 kb
+     (band radius 120, non-dyadic gap penalties) and (c) 64 pairs of
+     1.5 kb (radius 300, band 601), each with a 256-pair subsample
+     against the host C kernel nw_band;
   4. oracle: the row-sweep kernels of the device oracle BandedNWDevice
      (banded_nw_fwd, banded_nw_chase) bit for bit against their plain
      versions at the 65,536 pairs of 250 nt (radius 16) and at 2,048
@@ -22,9 +24,10 @@ Phases, each printing a line, any failure exits non-zero:
      (usearch12_tpu_torch.cli.main, in this process so that the kernels'
      launch counts can be read) on the long-contig workload (32 queries x
      32 targets of 24,150 nt), whose blast6 bytes must equal those of
-     `python -m usearch12_tpu.cli ... -no_engine_device`, the JAX
-     package's host C path, with the device and host cells and both
-     kernels' launch counts of that run;
+     the same command line with -no_engine_device (the host C path, a
+     process of its own), with 5,532,965,001 device cells; then the
+     run's launches replayed (their inputs as recorded) to time
+     wavefront_fwd and wavefront_trace on them;
   6. sintax kernels: sintax_pick_hist and sintax_boot_select bit for bit
      against their plain versions on one full chunk of the SINTAX workload
      (128 jobs x 100 boots x 256 word slots against the 60,000-target
@@ -34,11 +37,26 @@ Phases, each printing a line, any failure exits non-zero:
      _gen_sintax_big, seed 17, not cut: 60,000 targets of 248 nt, 1,500
      queries, -strand both -randseed 1) through the port's command line
      with -sintax_device, in this process, whose -tabbedout bytes must
-     equal those of `python -m usearch12_tpu.cli ... -no_sintax_device`,
-     the JAX package's host path; then the auto gate's measurement (the
-     port's command line as a fresh process, host and card twice each, at
-     5,000, 20,000, 60,000 and 90,000 targets, with the start-up costs
-     of such a process) and one profiled card run.
+     equal those of the same command line with -no_sintax_device (the
+     host path, a process of its own); then the auto gate's measurement
+     (the port's command line as a fresh process, host and card, at
+     60,000 and 90,000 targets, with the start-up costs of such a
+     process) and one profiled card run;
+  8. perf model: the engine cost model's cold-start constants on this
+     card (dispatch cost, copy rates, the slice's DP rate, the first
+     dispatch's excess in a fresh process).
+Every kernel's time comes with its bound: the larger of the bytes it
+must move over 3.35 TB/s and its float32 operations over 67 TFLOP/s.
+
+With --against DIR, DIR being another checkout of the repository (for
+example a parent commit unpacked with git archive), its
+csrc/wavefront_fwd.cu is built with this tree's nvcc flags and its
+kernel timed against this tree's at (a), (b) and on the slice's
+launches, bit-equal, in turns other, this, this, other; this tree's
+kernel is also timed with the pairs in launch order instead of longest
+first.  DIR's entry point wavefront_fwd_launch must take this tree's
+arguments, or those less `order` where DIR's _build.py declares no
+`order`.
 Each phase prints its seconds.  The line before the last is the kernel
 summary as JSON, the last line {"ok": true, "device": {...}}.
 """
@@ -181,16 +199,73 @@ def cuda_ms(fn, reps, warm=True):
     return start.elapsed_time(end) / reps, out
 
 
-def check_kernels(tag, pairs, radius, ap, dev, reps):
-    """Kernels against plain versions on `pairs`; returns a dict of
-    times and errors."""
+# published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s
+# and float32 operations/s outside the tensor cores
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+
+
+def bound(nbytes, ops):
+    """(bound_ms, bound_by): the least time for `nbytes` moved and `ops`
+    float32 operations at the published peaks."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def clocks():
+    """The card's SM clock and power draw now, from nvidia-smi."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60)
+    return r.stdout.strip()
+
+
+def nbytes_of(*tensors):
+    return sum(x.numel() * x.element_size() for x in tensors)
+
+
+def band_cells(la, lb, dlo, bw):
+    """Cells of each pair inside its band and the la x lb rectangle."""
     import numpy as np
-    import torch
+    la, lb, dlo, bw = (np.asarray(x, np.int64)[:, None]
+                       for x in (la, lb, dlo, bw))
+    k = dlo + np.arange(int(bw.max()))[None, :] - la    # j - i of a diagonal
+    n = np.minimum(la, lb - k) - np.maximum(0, -k)
+    return (np.where(np.arange(n.shape[1])[None, :] < bw, n, 0)
+            .clip(min=0).sum(1))
+
+
+# float32 operations of one DP cell: 5 adds and 4 compares
+DP_OPS = 9
+
+
+def fwd_bound(w, out):
+    """bound_ms, bound_by of wavefront_fwd on launch inputs w."""
+    cells = int(band_cells(*(x.cpu().numpy() for x in w[2:6])).sum())
+    return bound(nbytes_of(*w[:7], *out), DP_OPS * cells)
+
+
+def trace_bound(args, out):
+    """bound_ms, bound_by of wavefront_trace: the traceback bytes its
+    paths touch (one per step), the last M rows and the small inputs and
+    outputs; 3 operations per final-row column, 4 per path step."""
+    tb, tb_off, mlast, dlb, la, lb, dlo, bw, gp = args
+    steps = int(out[2].sum())
+    nbytes = steps + nbytes_of(tb_off, mlast, dlb, la, lb, dlo, bw, gp, *out)
+    return bound(nbytes, 3 * int(lb.sum()) + 4 * steps)
+
+
+def check_kernels(tag, pairs, radius, ap, dev, reps, other=None):
+    """Kernels against plain versions on `pairs`, and wavefront_fwd
+    against `other`'s (compare_fwd) where given; returns a dict of times,
+    bounds and errors."""
+    import numpy as np
     from usearch12_tpu_torch.ops import wavefront_nw as wnw
     from usearch12_tpu_torch.ops import wavefront_trace as wtr
     geo = wnw.pair_geometry(pairs, radius)
     w = wnw.pack_launch(pairs, *geo, dev)
-    gp = wnw.gap_params_from_jax(ap).to(dev)
+    gp = wnw.gap_params(ap).to(dev)
     match, mismatch = wnw.match_mismatch(ap)
     fwd_ms, fwd = cuda_ms(lambda: wnw.wavefront_fwd(*w, gp, match, mismatch),
                           reps)
@@ -200,6 +275,9 @@ def check_kernels(tag, pairs, radius, ap, dev, reps):
         if not bit_equal(x, y):
             fail(f"{tag}: wavefront_fwd {name} differs from its plain "
                  "version")
+    if other is not None:
+        compare_fwd(tag, [tuple(w) + (gp, match, mismatch)], other)
+    fwd_bound_ms, fwd_bound_by = fwd_bound(w, fwd)
     tb, mlast, dlb = fwd
     targs = (tb, w.tb_off, mlast, dlb, w.la, w.lb, w.dlo, w.bw, gp)
     tr_ms, tr = cuda_ms(lambda: wtr.wavefront_trace(*targs), reps)
@@ -223,16 +301,22 @@ def check_kernels(tag, pairs, radius, ap, dev, reps):
     cells = int((np.minimum(geo[0], geo[1]) * (2 * radius + 1)).sum())
     err = max(float((fwd[1] - fwd_plain[1]).abs().max()),
               float((fwd[2] - fwd_plain[2]).abs().max()))
-    print(f"kernels {tag}: {len(pairs)} pairs, {cells} cells; "
-          f"wavefront_fwd {fwd_ms:.3f} ms ({cells / fwd_ms / 1e6:.2f} "
-          f"Gcells/s), plain {fwd_plain_ms:.1f} ms; wavefront_trace "
-          f"{tr_ms:.3f} ms ({cells / tr_ms / 1e6:.2f} Gcells/s), plain "
+    tr_bound_ms, tr_bound_by = trace_bound(targs, tr)
+    print(f"kernels {tag}: {len(pairs)} pairs, {cells} cells, widest band "
+          f"{int(geo[3].max())}; wavefront_fwd {fwd_ms:.3f} ms "
+          f"({cells / fwd_ms / 1e6:.2f} Gcells/s, bound {fwd_bound_ms:.4f} "
+          f"ms by {fwd_bound_by}), plain {fwd_plain_ms:.1f} ms; "
+          f"wavefront_trace "
+          f"{tr_ms:.3f} ms ({cells / tr_ms / 1e6:.2f} Gcells/s, bound "
+          f"{tr_bound_ms:.4f} ms by {tr_bound_by}), plain "
           f"{tr_plain_ms:.1f} ms; "
-          f"bit-equal to plain, {len(sub)} pairs equal to nw_band",
-          flush=True)
+          f"bit-equal to plain, {len(sub)} pairs equal to nw_band; clocks "
+          f"{clocks()}", flush=True)
     return {"fwd_ms": fwd_ms, "fwd_plain_ms": fwd_plain_ms,
-            "fwd_err": err, "trace_ms": tr_ms,
+            "fwd_err": err, "fwd_bound": (fwd_bound_ms, fwd_bound_by),
+            "trace_ms": tr_ms,
             "trace_plain_ms": tr_plain_ms,
+            "trace_bound": (tr_bound_ms, tr_bound_by),
             "trace_err": float((tr[0] - tr_plain[0]).abs().max())}
 
 
@@ -248,7 +332,7 @@ def check_banded(tag, pairs, radius, ap, dev, reps):
         batch.la, batch.lb, batch.dlo, batch.bw))
     a_let, b_let = (torch.from_numpy(x).to(dev)
                     for x in (batch.a_let, batch.b_let))
-    gp = wnw.gap_params_from_jax(ap).to(dev)
+    gp = wnw.gap_params(ap).to(dev)
     match, mismatch = wnw.match_mismatch(ap)
     fwd_ms, fwd = cuda_ms(lambda: bn.banded_nw_fwd(
         a_let, b_let, *geo, gp, match, mismatch), reps)
@@ -277,15 +361,208 @@ def check_banded(tag, pairs, radius, ap, dev, reps):
         fail(f"oracle {tag}: non-finite scores")
     cells = int((np.minimum(batch.la, batch.lb).astype(np.int64)
                  * (2 * radius + 1)).sum())
+    fwd_b = bound(nbytes_of(a_let, b_let, *geo, gp, *fwd),
+                  DP_OPS * int(band_cells(batch.la, batch.lb, batch.dlo,
+                                          batch.bw).sum()))
+    # the path's steps: the non-pad 2-bit codes of the packed ops
+    ops = ch[3]
+    steps = int(sum(((ops >> (2 * k)) & 3 != bn.OP_PAD).sum()
+                    for k in range(4)))
+    ch_b = bound(steps + nbytes_of(mlast, dlb, *geo, gp, *ch),
+                 3 * int(batch.lb.sum()) + 4 * steps)
     print(f"oracle {tag}: {len(pairs)} pairs, {cells} cells; banded_nw_fwd "
-          f"{fwd_ms:.3f} ms ({cells / fwd_ms / 1e6:.2f} Gcells/s), plain "
+          f"{fwd_ms:.3f} ms ({cells / fwd_ms / 1e6:.2f} Gcells/s, bound "
+          f"{fwd_b[0]:.4f} ms by {fwd_b[1]}), plain "
           f"{fwd_plain_ms:.1f} ms; banded_nw_chase {ch_ms:.3f} ms "
-          f"({cells / ch_ms / 1e6:.2f} Gcells/s), plain {ch_plain_ms:.1f} "
-          "ms; bit-equal to plain", flush=True)
+          f"({cells / ch_ms / 1e6:.2f} Gcells/s, bound {ch_b[0]:.4f} ms by "
+          f"{ch_b[1]}), plain {ch_plain_ms:.1f} ms; bit-equal to plain",
+          flush=True)
     return {"fwd_ms": fwd_ms, "fwd_plain_ms": fwd_plain_ms,
-            "fwd_err": fwd_err,
+            "fwd_err": fwd_err, "fwd_bound": fwd_b,
             "chase_ms": ch_ms, "chase_plain_ms": ch_plain_ms,
+            "chase_bound": ch_b,
             "chase_err": float((ch[0] - ch_plain[0]).abs().max())}
+
+
+def time_slice_launches(seen):
+    """The slice's launches (inputs as recorded on the main path)
+    replayed: wavefront_fwd and wavefront_trace timed on them (one run
+    each after a warm-up); returns the times, the forward bound and the
+    launches' sizes."""
+    from usearch12_tpu_torch.ops import wavefront_nw as wnw
+    from usearch12_tpu_torch.ops import wavefront_trace as wtr
+    fwd_ms, outs = cuda_ms(lambda: [wnw.wavefront_fwd(*a) for a in seen], 1)
+    bound_ms = sum(fwd_bound(a[:7], o)[0] for a, o in zip(seen, outs))
+    trace_ms, _ = cuda_ms(lambda: [wtr.wavefront_trace(
+        o[0], a[6], o[1], o[2], *a[2:6], a[8]) for a, o in zip(seen, outs)
+    ][-1], 1)
+    del outs
+    pairs = [int(a[2].numel()) for a in seen]
+    print(f"slice launches replayed: {len(seen)} launches of {pairs} "
+          f"pairs; wavefront_fwd {fwd_ms:.3f} ms, bound {bound_ms:.4f} ms; "
+          f"wavefront_trace {trace_ms:.3f} ms; clocks {clocks()}",
+          flush=True)
+    return {"fwd_ms": fwd_ms, "bound_ms": bound_ms, "pairs": pairs,
+            "trace_ms": trace_ms}
+
+
+def load_other_fwd(src_dir):
+    """The wavefront_fwd_launch entry point of another checkout's
+    csrc/wavefront_fwd.cu, built with this tree's nvcc flags, and whether
+    it takes `order` (as that checkout's _build.py declares); its other
+    arguments are this tree's."""
+    import ctypes
+    from usearch12_tpu_torch import _build
+    src = os.path.join(os.path.abspath(src_dir), "usearch12_tpu_torch",
+                       "csrc", "wavefront_fwd.cu")
+    out_dir = _build.BUILD_DIR / "against"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    so = out_dir / "libwavefront_fwd_other.so"
+    t0 = time.perf_counter()
+    r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+                        str(so), src], capture_output=True, text=True,
+                       timeout=600)
+    if r.returncode != 0:
+        fail(f"nvcc of {src} failed: {r.stdout[-2000:]}{r.stderr[-2000:]}")
+    with open(os.path.join(src_dir, "usearch12_tpu_torch", "_build.py")) as f:
+        takes_order = "# tb_off, order" in f.read()
+    lib = ctypes.CDLL(str(so))
+    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.wavefront_fwd_launch.restype = i32
+    lib.wavefront_fwd_launch.argtypes = [vp, vp, i32, i32, vp, vp, vp, vp,
+                                         vp] + [vp] * takes_order + [
+        vp, f32, f32, i32, i32, vp, vp, vp, vp]
+    print(f"against: {src} built in {time.perf_counter() - t0:.1f} s, "
+          f"{'with' if takes_order else 'without'} a pair order", flush=True)
+    return lib, takes_order
+
+
+def raw_fwd(lib, a, lanes, order=None):
+    """One launch of a wavefront_fwd_launch entry point on `a` (the
+    wrapper's arguments: WaveLaunch fields, gp, match, mismatch), with
+    the pair order `order` where the entry point takes one."""
+    import torch
+    a_let, b_let, la, lb, dlo, bw, tb_off, tb_bytes, gp, match, mismatch = a
+    (P, amax), bmax = a_let.shape, b_let.shape[1]
+    tb = torch.empty(tb_bytes, dtype=torch.uint8, device=a_let.device)
+    mlast = torch.empty((P, bmax), dtype=torch.float32, device=a_let.device)
+    dlb = torch.empty(P, dtype=torch.float32, device=a_let.device)
+    head = [a_let.data_ptr(), b_let.data_ptr(), amax, bmax, la.data_ptr(),
+            lb.data_ptr(), dlo.data_ptr(), bw.data_ptr(), tb_off.data_ptr()]
+    if order is not None:
+        head.append(order.data_ptr())
+    err = lib.wavefront_fwd_launch(
+        *head, gp.data_ptr(), match, mismatch, P, lanes, tb.data_ptr(),
+        mlast.data_ptr(), dlb.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        fail(f"wavefront_fwd_launch returned CUDA error {err}")
+    return tb, mlast, dlb
+
+
+def compare_fwd(tag, launches, other):
+    """wavefront_fwd of another checkout (`other`, load_other_fwd's
+    library and whether it takes a pair order; it gets the one this
+    tree's wrapper makes) and of
+    this tree (pairs longest first, as the wrapper launches them, and in
+    launch order) on `launches`, bit-equal, each timed over all launches
+    in turns other, this, this in launch order (twice), this, other;
+    returns {name: [ms, ms]}."""
+    import torch
+    from usearch12_tpu_torch import _build
+    lib = _build.load_library()
+    other, other_order = other
+    lanes = [((int(a[5].max()) + 1) // 2 + 31) // 32 * 32 for a in launches]
+    longest = [torch.argsort(a[2] + a[3], descending=True, stable=True).to(
+        torch.int32) for a in launches]
+    given = [torch.arange(a[2].numel(), dtype=torch.int32,
+                          device=a[2].device) for a in launches]
+    runs = {
+        "other": lambda: [
+            raw_fwd(other, a, n, o if other_order else None)
+            for a, n, o in zip(launches, lanes, longest)][-1],
+        "this": lambda: [raw_fwd(lib, a, n, o)
+                         for a, n, o in zip(launches, lanes, longest)][-1],
+        "this, launch order": lambda: [
+            raw_fwd(lib, a, n, o)
+            for a, n, o in zip(launches, lanes, given)][-1]}
+    for k, a in enumerate(launches):
+        want = raw_fwd(other, a, lanes[k],
+                       longest[k] if other_order else None)
+        for got in (raw_fwd(lib, a, lanes[k], longest[k]),
+                    raw_fwd(lib, a, lanes[k], given[k])):
+            for name, x, y in zip(("tb", "mlast", "dlb"), got, want):
+                if not bit_equal(x, y):
+                    fail(f"against {tag}: wavefront_fwd {name} differs from "
+                         "the other checkout's")
+        del want, got
+    times = {name: [] for name in runs}
+    for name in ("other", "this", "this, launch order", "this, launch order",
+                 "this", "other"):
+        times[name].append(cuda_ms(runs[name], 1)[0])
+    print(f"against {tag}: wavefront_fwd over {len(launches)} launches, ms "
+          f"{json.dumps(times)}; bit-equal; clocks {clocks()}", flush=True)
+    return times
+
+
+def perf_constants(dev, ap, dev_rate):
+    """DevicePerfModel's cold-start constants measured on this card: the
+    fixed cost of one TorchWaveAligner dispatch of one short pair (rtt),
+    pageable host-to-card and card-to-host copies of 64 MB, the hole DP
+    rate of the slice (its cells over TorchWaveAligner.align's seconds),
+    and the first dispatch's excess over the second in a fresh process
+    (warm_tax; the kernel library already built)."""
+    import numpy as np
+    import torch
+    from usearch12_tpu_torch.ops import wavefront_nw as wnw
+    one = kernel_pairs(np.random.default_rng(3), 1, 100)
+    aligner = wnw.TorchWaveAligner(ap, dev)
+    aligner.align(one, 16)
+    rtts = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        aligner.align(one, 16)
+        rtts.append(time.perf_counter() - t0)
+    host = np.ones(64 << 20, np.uint8)
+    card = torch.ones(64 << 20, dtype=torch.uint8, device=dev)
+    ups, dns = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.from_numpy(host).to(dev)
+        torch.cuda.synchronize()
+        ups.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        card.cpu()
+        dns.append(time.perf_counter() - t0)
+    code = ("import sys, time; sys.path.insert(0, sys.argv[1])\n"
+            "import numpy as np\n"
+            "import chip_smoke as cs\n"
+            "from usearch12_tpu_torch.device import resolve_device\n"
+            "from usearch12_tpu_torch.ops import wavefront_nw as wnw\n"
+            "dev = resolve_device()\n"
+            "pairs = cs.kernel_pairs(np.random.default_rng(4), 256, 2000)\n"
+            "al = wnw.TorchWaveAligner(wnw.nucleo_params(-10.0, -1.0, -0.5,"
+            " -0.5), dev)\n"
+            "ts = []\n"
+            "for _ in range(2):\n"
+            "    t0 = time.perf_counter(); al.align(pairs, 120)\n"
+            "    ts.append(time.perf_counter() - t0)\n"
+            "print(ts[0], ts[1])\n")
+    r = subprocess.run([sys.executable, "-c", code, HERE], cwd=HERE,
+                       capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        fail(f"first-dispatch probe exited {r.returncode}: "
+             f"{r.stderr[-2000:]}")
+    first, second = (float(x) for x in r.stdout.split()[-2:])
+    rtt = float(np.median(rtts))
+    print(f"perf model: rtt {rtt:.6f} s (median of 20, one 100-nt pair); "
+          f"up {host.nbytes / min(ups):.4g} B/s, down "
+          f"{host.nbytes / min(dns):.4g} B/s (best of 5, 64 MB pageable); "
+          f"dev_rate {dev_rate:.4g} cells/s (the slice); first dispatch "
+          f"{first:.4f} s, second {second:.4f} s, warm_tax "
+          f"{max(0.0, first - second):.4f} s (256 pairs of 2 kb, radius 120,"
+          " fresh process)", flush=True)
 
 
 def lcg_stream(n, seed=1):
@@ -348,6 +625,9 @@ def check_sintax_kernels(engine, chunks, dev):
         dtype = sb.product_dtype(dev, m_val * max(engine.inc_absmax, 1))
         args = (nuw_d, m_d, stream_d, engine.B, words.shape[1], dtype)
         hist_ms, P = cuda_ms(lambda: sb.pick_hist(*args), 5)
+        # 2 operations per pick (the fold and the add), B x m picks a job
+        hist_b = bound(nbytes_of(nuw_d, m_d, stream_d, P),
+                       2 * engine.B * int(m.astype("int64").sum()))
         hist_plain_ms, P_plain = cuda_ms(lambda: sb.pick_hist_plain(*args), 1)
         if not bit_equal(P, P_plain):
             fail(f"sintax m={m_val}: sintax_pick_hist differs from its "
@@ -357,6 +637,8 @@ def check_sintax_kernels(engine, chunks, dev):
         prod_ms, U = cuda_ms(lambda: sb.boot_product(P, mq), 3)
         del mq
         sel_ms, sel = cuda_ms(lambda: sb.boot_select(U, rr_d), 5)
+        # 2 operations per element of U: the max and the tie count
+        sel_b = bound(nbytes_of(U, rr_d, *sel), 2 * U.numel())
         sel_plain_ms, sel_plain = cuda_ms(
             lambda: sb.boot_select_plain(U, rr_d), 1)
         for name, x, y in zip(("winner", "top"), sel, sel_plain):
@@ -374,10 +656,13 @@ def check_sintax_kernels(engine, chunks, dev):
               f"sintax_pick_hist {hist_ms:.3f} ms, plain {hist_plain_ms:.3f}"
               f" ms; gather {gather_ms:.3f} ms; product {prod_ms:.3f} ms; "
               f"sintax_boot_select {sel_ms:.3f} ms, plain {sel_plain_ms:.3f}"
-              f" ms; top max {top}; bit-equal to plain", flush=True)
+              f" ms; bounds {hist_b[0]:.4f} ms by {hist_b[1]}, "
+              f"{sel_b[0]:.4f} ms by {sel_b[1]}; top max {top}; bit-equal "
+              "to plain", flush=True)
         if m_val == 32:
             out.update(hist_ms=hist_ms, hist_plain_ms=hist_plain_ms,
-                       sel_ms=sel_ms, sel_plain_ms=sel_plain_ms)
+                       sel_ms=sel_ms, sel_plain_ms=sel_plain_ms,
+                       hist_bound=hist_b, sel_bound=sel_b)
         del U, P, P_plain, sel_plain
     return out
 
@@ -464,7 +749,7 @@ def phase_sintax(d, dev, phase_done):
     # 6. the SINTAX kernels on full chunks of the workload
     t_phase = time.perf_counter()
     sizes_of = {}
-    for n in (60000, 90000, 20000, 5000):
+    for n in (60000, 90000):
         dbf, qf = (os.path.join(d, f"sx{n}_{x}.fa") for x in ("db", "q"))
         gen_sintax(dbf, qf, n)
         sizes_of[n] = (dbf, qf)
@@ -480,18 +765,17 @@ def phase_sintax(d, dev, phase_done):
     torch.cuda.empty_cache()
     phase_done(6, t_phase)
 
-    # 7. the workload through the port's command line against the JAX
-    # package's host path, then the gate's measurement
+    # 7. the workload through the port's command line on the card against
+    # its host path, then the gate's measurement
     t_phase = time.perf_counter()
     base = ["-sintax", qf, "-db", dbf, "-strand", "both", "-randseed", "1",
             "-quiet"]
     ref, port = os.path.join(d, "ref.tab"), os.path.join(d, "port.tab")
     stats = os.path.join(d, "sintax_stats.jsonl")
     t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", "usearch12_tpu.cli"] + base
-                       + ["-no_sintax_device", "-tabbedout", ref], cwd=HERE,
-                       env=dict(os.environ, JAX_PLATFORMS="cpu"),
-                       capture_output=True, text=True, timeout=900)
+    r = subprocess.run([sys.executable, "-m", "usearch12_tpu_torch.cli"]
+                       + base + ["-no_sintax_device", "-tabbedout", ref],
+                       cwd=HERE, capture_output=True, text=True, timeout=900)
     t_host = time.perf_counter() - t0
     if r.returncode != 0:
         fail(f"sintax host judge exited {r.returncode}: {r.stderr[-2000:]}")
@@ -510,8 +794,8 @@ def phase_sintax(d, dev, phase_done):
     n_rows = ref_b.count(b"\n")
     with open(qf) as f:
         n_queries = f.read().count(">")
-    print(f"sintax: 60,000 targets x 1,500 queries, -strand both; JAX host "
-          f"path (subprocess) {t_host:.2f} s, port on the card "
+    print(f"sintax: 60,000 targets x 1,500 queries, -strand both; host "
+          f"path (subprocess) {t_host:.2f} s, card "
           f"{t_port:.2f} s (classify_window {stage['classify_window']:.2f} "
           f"s, run_chunk {stage['run_chunk']:.2f} s); stats {rec}; "
           f"launches {launches}; {n_rows} rows, tabbedout "
@@ -525,8 +809,8 @@ def phase_sintax(d, dev, phase_done):
              f"{launches}")
 
     # the auto gate: host and card as fresh processes of the port's
-    # command line, as a user runs it, at three DB sizes, in the order
-    # host, card, card, host
+    # command line, as a user runs it, at two DB sizes around
+    # AUTO_MIN_TARGETS, in the order host, card
     for code in ("import usearch12_tpu_torch.cli", "import torch",
                  "import torch; torch.zeros(1, device='cuda')"):
         t0 = time.perf_counter()
@@ -539,8 +823,7 @@ def phase_sintax(d, dev, phase_done):
         g_db, g_q = sizes_of[n]
         secs = {"-no_sintax_device": [], "-sintax_device": []}
         outs = []
-        for flag in ("-no_sintax_device", "-sintax_device", "-sintax_device",
-                     "-no_sintax_device"):
+        for flag in ("-no_sintax_device", "-sintax_device"):
             outs.append(os.path.join(d, f"gate{n}_{len(outs)}.tab"))
             t0 = time.perf_counter()
             r = subprocess.run(
@@ -560,10 +843,9 @@ def phase_sintax(d, dev, phase_done):
             fail(f"sintax gate {n}: host and card -tabbedout differ")
         host_s, card_s = (secs[k] for k in ("-no_sintax_device",
                                            "-sintax_device"))
-        gate.append((n, sum(host_s) / 2, sum(card_s) / 2))
-        print(f"sintax gate: {n} targets; host {host_s[0]:.2f}, "
-              f"{host_s[1]:.2f} s, card {card_s[0]:.2f}, {card_s[1]:.2f} s; "
-              "tabbedout equal", flush=True)
+        gate.append((n, host_s[0], card_s[0]))
+        print(f"sintax gate: {n} targets; host {host_s[0]:.2f} s, card "
+              f"{card_s[0]:.2f} s; tabbedout equal", flush=True)
     print(f"sintax gate: crossover at {gate_crossover(gate):.0f} targets",
           flush=True)
     wall, stage, prof = sintax_run(base + ["-sintax_device", "-tabbedout",
@@ -585,6 +867,12 @@ def main():
         fail("no CUDA device")
     import numpy as np
     from usearch12_tpu_torch import _build, cli
+    against = None
+    if "--against" in sys.argv[1:]:
+        k = sys.argv.index("--against")
+        if k + 1 >= len(sys.argv):
+            fail("--against needs a directory")
+        against = sys.argv[k + 1]
     from usearch12_tpu_torch.device import card_info, resolve_device
     from usearch12_tpu_torch.ops import banded_nw as bn
     from usearch12_tpu_torch.ops import wavefront_nw as wnw
@@ -612,6 +900,7 @@ def main():
     print(f"build: {_build.library_path().name} "
           f"{'reused' if cached else 'built'} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    other = None if against is None else load_other_fwd(against)
     phase_done(2, t0)
 
     # 3. kernels against their plain versions
@@ -620,9 +909,11 @@ def main():
     ap_nd = wnw.nucleo_params(-10.3, -1.1, -0.7, -0.4)  # non-dyadic
     rng = np.random.default_rng(7)
     pairs_a = kernel_pairs(rng, 65536, 250)
-    check_kernels("250nt", pairs_a, 16, ap, dev, 5)
-    big = check_kernels("3kb", kernel_pairs(rng, 512, 3000, indel=40), 120,
-                        ap_nd, dev, 3)
+    shape_a = check_kernels("(a) 250nt", pairs_a, 16, ap, dev, 5, other)
+    big = check_kernels("(b) 3kb", kernel_pairs(rng, 512, 3000, indel=40),
+                        120, ap_nd, dev, 3, other)
+    check_kernels("(c) 1.5kb band 601", kernel_pairs(rng, 64, 1500), 300,
+                  ap_nd, dev, 3)
     phase_done(3, t_phase)
 
     # 4. the device oracle: its kernels against their plain versions, then
@@ -654,9 +945,11 @@ def main():
         fail(f"BandedNWDevice and TorchWaveAligner differ on {n_diff} pairs")
     if min(orc_launches.values()) <= 0:
         fail(f"a kernel was not launched on the oracle path: {orc_launches}")
+    del pairs_a, s_orc, p_orc, s_wave, p_wave
     phase_done(4, t_phase)
 
-    # 5. the slice: usearch_global on the long-contig workload
+    # 5. the slice: usearch_global on the long-contig workload, on the
+    # card against the port's host C path
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
         qf, tf = os.path.join(d, "lq.fa"), os.path.join(d, "lt.fa")
@@ -665,92 +958,149 @@ def main():
                                                                  "port.b6")
         stats = os.path.join(d, "stats.jsonl")
         args = ["-usearch_global", qf, "-db", tf] + COMMON
-        env = dict(os.environ, JAX_PLATFORMS="cpu")
         t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m", "usearch12_tpu.cli"]
+        r = subprocess.run([sys.executable, "-m", "usearch12_tpu_torch.cli"]
                            + args + ["-no_engine_device", "-blast6out",
                                      ref_b6],
-                           cwd=HERE, env=env, capture_output=True,
-                           text=True, timeout=900)
+                           cwd=HERE, capture_output=True, text=True,
+                           timeout=900)
         t_host = time.perf_counter() - t0
         if r.returncode != 0:
             fail(f"host judge exited {r.returncode}: {r.stderr[-2000:]}")
+        with open(ref_b6, "rb") as f:
+            ref = f.read()
+        # the defaults (the cost model's gate, from its cold-start
+        # constants: a cache file of its own in this directory)
+        from usearch12_tpu_torch.engine import batch as engine_batch
+        auto_b6, auto_stats = (os.path.join(d, x) for x in ("auto.b6",
+                                                             "auto.jsonl"))
+        cache = engine_batch.DevicePerfModel.CACHE
+        engine_batch.DevicePerfModel.CACHE = os.path.join(d, "perf.json")
+        os.environ["USEARCH_DEVICE_STATS"] = auto_stats
+        try:
+            t0 = time.perf_counter()
+            rc = cli.main(args + ["-blast6out", auto_b6])
+            torch.cuda.synchronize()
+            t_auto = time.perf_counter() - t0
+        finally:
+            engine_batch.DevicePerfModel.CACHE = cache
+        with open(auto_b6, "rb") as f:
+            auto = f.read()
+        with open(auto_stats) as f:
+            ds_auto = json.loads(f.read().splitlines()[-1])
+        print(f"slice, default gate (cold constants): {t_auto:.2f} s; "
+              f"device_cells {ds_auto['device_cells']}, host_cells "
+              f"{ds_auto['host_cells']}, dispatches {ds_auto['dispatches']}; "
+              f"blast6 {'equal' if auto == ref else 'DIFFERENT'}",
+              flush=True)
+        if rc != 0 or auto != ref:
+            fail("the slice with the default gate differs from the host path")
         os.environ["USEARCH_DEVICE_STATS"] = stats
+        # record each launch's inputs (as pack_launch makes them, with the
+        # aligner's gap penalties) and the aligner's host time, without a
+        # launch of their own
+        pack, align = wnw.pack_launch, wnw.TorchWaveAligner.align
+        seen, align_s, cur = [], [0.0], []
+
+        def capture(*a, **k):
+            w = pack(*a, **k)
+            seen.append(tuple(w) + (cur[-1].gp, cur[-1].match,
+                                    cur[-1].mismatch))
+            return w
+
+        def timed_align(self, *a, **k):
+            cur.append(self)
+            t = time.perf_counter()
+            out = align(self, *a, **k)
+            align_s[0] += time.perf_counter() - t
+            return out
+
+        wnw.pack_launch, wnw.TorchWaveAligner.align = capture, timed_align
         wnw.wavefront_fwd.launches = 0
         wtr.wavefront_trace.launches = 0
-        t0 = time.perf_counter()
-        rc = cli.main(args + ["-dev_batch_cells", "1", "-blast6out",
-                              port_b6])
-        torch.cuda.synchronize()
-        t_port = time.perf_counter() - t0
+        try:
+            t0 = time.perf_counter()
+            rc = cli.main(args + ["-dev_batch_cells", "1", "-blast6out",
+                                  port_b6])
+            torch.cuda.synchronize()
+            t_port = time.perf_counter() - t0
+        finally:
+            wnw.pack_launch, wnw.TorchWaveAligner.align = pack, align
         launches = {"wavefront_fwd": wnw.wavefront_fwd.launches,
                     "wavefront_trace": wtr.wavefront_trace.launches}
         del os.environ["USEARCH_DEVICE_STATS"]
         if rc != 0:
             fail(f"usearch12_tpu_torch.cli exited {rc}")
-        with open(ref_b6, "rb") as f:
-            ref = f.read()
         with open(port_b6, "rb") as f:
             port = f.read()
         with open(stats) as f:
             ds = json.loads(f.read().splitlines()[-1])
         n_hits = ref.count(b"\n")
         print(f"slice: 32 x 32 contigs of 24,150 nt; host C path "
-              f"{t_host:.2f} s, port {t_port:.2f} s; device_cells "
+              f"{t_host:.2f} s, card {t_port:.2f} s (TorchWaveAligner.align "
+              f"{align_s[0]:.2f} s); device_cells "
               f"{ds['device_cells']}, host_cells {ds['host_cells']}, "
-              f"dispatches {ds['dispatches']}; launches {launches}; "
+              f"dispatches {ds['dispatches']}; launches {launches}; pairs "
+              f"per launch {[int(a[2].numel()) for a in seen]}; "
               f"{n_hits} hits, blast6 "
               f"{'equal' if ref == port else 'DIFFERENT'}", flush=True)
         if ref != port or n_hits == 0:
-            fail("blast6 of the port differs from the host C path")
-        if ds["device_cells"] <= 0:
-            fail("no hole cells ran on the device")
+            fail("blast6 on the card differs from the host C path")
+        if ds["device_cells"] != 5532965001:
+            fail(f"device_cells {ds['device_cells']}, not 5,532,965,001")
         if min(launches.values()) <= 0:
             fail(f"a kernel was not launched on the main path: {launches}")
-    phase_done(5, t_phase)
-    del pairs_a, s_orc, p_orc, s_wave, p_wave
+    time_slice_launches(seen)
+    if other is not None:
+        compare_fwd("slice launches", seen, other)
+    dev_rate = ds["device_cells"] / align_s[0]
+    del seen
     torch.cuda.empty_cache()
+    phase_done(5, t_phase)
 
     with tempfile.TemporaryDirectory() as d:
         sx, sx_launches = phase_sintax(d, dev, phase_done)
 
+    # 8. the cost model's cold-start constants on this card
+    t_phase = time.perf_counter()
+    perf_constants(dev, ap, dev_rate)
+    phase_done(8, t_phase)
+
+    def row(name, source, replaces, n, err, ms, plain_ms, bnd):
+        return {"name": name, "route": "cuda",
+                "source": f"usearch12_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": n, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+                "bound_by": bnd[1], "library_ms": None}
+
     print(json.dumps({"kernels": [
-        {"name": "wavefront_fwd", "route": "cuda",
-         "source": "usearch12_tpu_torch/csrc/wavefront_fwd.cu",
-         "replaces": "usearch12_tpu/ops/wavefront_nw.py:257",
-         "launches": launches["wavefront_fwd"],
-         "max_abs_err": big["fwd_err"], "ms": big["fwd_ms"],
-         "plain_ms": big["fwd_plain_ms"]},
-        {"name": "wavefront_trace", "route": "cuda",
-         "source": "usearch12_tpu_torch/csrc/wavefront_trace.cu",
-         "replaces": "usearch12_tpu/ops/wavefront_trace.py:54",
-         "launches": launches["wavefront_trace"],
-         "max_abs_err": big["trace_err"], "ms": big["trace_ms"],
-         "plain_ms": big["trace_plain_ms"]},
-        {"name": "banded_nw_fwd", "route": "cuda",
-         "source": "usearch12_tpu_torch/csrc/banded_nw.cu",
-         "replaces": "usearch12_tpu/ops/banded_nw.py:122",
-         "launches": orc_launches["banded_nw_fwd"],
-         "max_abs_err": max(orc["fwd_err"], orc_wide["fwd_err"]),
-         "ms": orc["fwd_ms"], "plain_ms": orc["fwd_plain_ms"]},
-        {"name": "banded_nw_chase", "route": "cuda",
-         "source": "usearch12_tpu_torch/csrc/banded_nw.cu",
-         "replaces": "usearch12_tpu/ops/banded_nw.py:569",
-         "launches": orc_launches["banded_nw_chase"],
-         "max_abs_err": max(orc["chase_err"], orc_wide["chase_err"]),
-         "ms": orc["chase_ms"], "plain_ms": orc["chase_plain_ms"]},
-        {"name": "sintax_pick_hist", "route": "cuda",
-         "source": "usearch12_tpu_torch/csrc/sintax_boot.cu",
-         "replaces": "usearch12_tpu/amplicon/sintax_device.py:132",
-         "launches": sx_launches["sintax_pick_hist"],
-         "max_abs_err": sx["hist_err"], "ms": sx["hist_ms"],
-         "plain_ms": sx["hist_plain_ms"]},
-        {"name": "sintax_boot_select", "route": "cuda",
-         "source": "usearch12_tpu_torch/csrc/sintax_boot.cu",
-         "replaces": "usearch12_tpu/amplicon/sintax_device.py:156",
-         "launches": sx_launches["sintax_boot_select"],
-         "max_abs_err": sx["select_err"], "ms": sx["sel_ms"],
-         "plain_ms": sx["sel_plain_ms"]}]}))
+        row("wavefront_fwd", "wavefront_fwd.cu",
+            "usearch12_tpu/ops/wavefront_nw.py:257",
+            launches["wavefront_fwd"], max(big["fwd_err"],
+                                           shape_a["fwd_err"]),
+            big["fwd_ms"], big["fwd_plain_ms"], big["fwd_bound"]),
+        row("wavefront_trace", "wavefront_trace.cu",
+            "usearch12_tpu/ops/wavefront_trace.py:54",
+            launches["wavefront_trace"], big["trace_err"], big["trace_ms"],
+            big["trace_plain_ms"], big["trace_bound"]),
+        row("banded_nw_fwd", "banded_nw.cu",
+            "usearch12_tpu/ops/banded_nw.py:122",
+            orc_launches["banded_nw_fwd"],
+            max(orc["fwd_err"], orc_wide["fwd_err"]), orc["fwd_ms"],
+            orc["fwd_plain_ms"], orc["fwd_bound"]),
+        row("banded_nw_chase", "banded_nw.cu",
+            "usearch12_tpu/ops/banded_nw.py:569",
+            orc_launches["banded_nw_chase"],
+            max(orc["chase_err"], orc_wide["chase_err"]), orc["chase_ms"],
+            orc["chase_plain_ms"], orc["chase_bound"]),
+        row("sintax_pick_hist", "sintax_boot.cu",
+            "usearch12_tpu/amplicon/sintax_device.py:132",
+            sx_launches["sintax_pick_hist"], sx["hist_err"], sx["hist_ms"],
+            sx["hist_plain_ms"], sx["hist_bound"]),
+        row("sintax_boot_select", "sintax_boot.cu",
+            "usearch12_tpu/amplicon/sintax_device.py:156",
+            sx_launches["sintax_boot_select"], sx["select_err"],
+            sx["sel_ms"], sx["sel_plain_ms"], sx["sel_bound"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -11,7 +11,7 @@ from usearch12_tpu.align.oracle import (band_diag_range, banded_nw,
                                         banded_nw_main_diag)
 from usearch12_tpu.ops import banded_nw as jax_bnw
 from usearch12_tpu_torch.ops import banded_nw as bn
-from usearch12_tpu_torch.ops.wavefront_nw import (gap_params_from_jax,
+from usearch12_tpu_torch.ops.wavefront_nw import (gap_params,
                                                   native_nw_band,
                                                   nucleo_params)
 
@@ -197,7 +197,7 @@ def test_gap_params_match_jax(cls):
     jdev = jax_bnw.BandedNWDevice(ap, pb=8)
     dev = bn.BandedNWDevice(ap, CPU)
     assert np.array_equal(dev.gp.numpy(), jdev.gp[0])
-    assert np.array_equal(gap_params_from_jax(ap).numpy(), jdev.gp[0])
+    assert np.array_equal(gap_params(ap).numpy(), jdev.gp[0])
     assert (dev.match, dev.mismatch) == (jdev.match, jdev.mismatch)
     assert bn.BAND_LANES == jax_bnw.BAND_LANES
     assert np.float32(bn.NEG) == jax_bnw.NEG
@@ -208,7 +208,7 @@ def test_wrappers_reject_bad_inputs():
     batch = bn.pack_pairs(rand_pairs(rng, 3, 10, 20), True, 4)
     args = [torch.from_numpy(x) for x in (batch.a_let, batch.b_let, batch.la,
                                          batch.lb, batch.dlo, batch.bw)]
-    gp = gap_params_from_jax(nucleo_params(*DYADIC))
+    gp = gap_params(nucleo_params(*DYADIC))
     with pytest.raises(ValueError):
         bn.banded_nw_fwd(*(x.to("meta") for x in args), gp.to("meta"),
                          1.0, -2.0)

@@ -12,8 +12,9 @@ import numpy as np
 import pytest
 
 import usearch12_tpu.cli as jax_cli
-from usearch12_tpu import runlog
 import usearch12_tpu_torch.cli as port_cli
+from usearch12_tpu import runlog as jax_runlog
+from usearch12_tpu_torch import runlog as port_runlog
 from tests.genseqs import mutate, rand_seq
 from tests.test_parity_16s import END, START
 
@@ -153,7 +154,8 @@ def _run_both(data, tmp_path, monkeypatch, capsys, cmdline, outs):
         d.mkdir()
         monkeypatch.chdir(d)
         capsys.readouterr()
-        runlog.reset()
+        jax_runlog.reset()
+        port_runlog.reset()
         assert run(args + ["-quiet"]) == 0, name
         res[name] = ({f: (d / f).read_bytes() for f in os.listdir(d)},
                      capsys.readouterr().out)

@@ -51,7 +51,7 @@ def test_kernels_match_plain_versions(card, radius, cls):
         bool(cls & 1), bool(cls & 2), bool(cls & 4), bool(cls & 8))
     pairs = _pairs(radius + cls, 64, 1, 400)
     w = wnw.pack_launch(pairs, *wnw.pair_geometry(pairs, radius), card)
-    gp = wnw.gap_params_from_jax(ap).to(card)
+    gp = wnw.gap_params(ap).to(card)
     mm = wnw.match_mismatch(ap)
     n0 = wnw.wavefront_fwd.launches
     fwd = wnw.wavefront_fwd(*w, gp, *mm)
@@ -68,6 +68,22 @@ def test_kernels_match_plain_versions(card, radius, cls):
     for k in range(0, len(pairs), 8):
         s_o, p_o = banded_nw_main_diag(*pairs[k], radius, ap)
         assert np.float32(s_o) == tr[0][k].item() and p_o == paths[k]
+
+
+@pytest.mark.parametrize("radius", [8, 31, 32, 120, 600])
+def test_forward_kernel_matches_plain_at_every_band(card, radius):
+    """Blocks of one warp (bands up to 63) to 19 warps (band 1,201), the
+    pairs of a launch of many lengths and bands."""
+    ap = wnw.nucleo_params(-10.3, -1.1, -0.7, -0.4)
+    pairs = _pairs(radius, 45, 1, 2 * radius + 300)
+    w = wnw.pack_launch(pairs, *wnw.pair_geometry(pairs, radius), card)
+    gp = wnw.gap_params(ap).to(card)
+    mm = wnw.match_mismatch(ap)
+    got = wnw.wavefront_fwd(*w, gp, *mm)
+    plain = wnw.wavefront_fwd_plain(*w, gp, *mm)
+    torch.cuda.synchronize()
+    for x, y in zip(got, plain):
+        assert _bit_equal(x, y)
 
 
 def test_aligner_on_card_matches_cpu(card):
@@ -99,7 +115,7 @@ def test_banded_nw_kernels_match_plain_versions(card, radius, pen):
     batch = bn.pack_pairs(pairs, True, radius)
     args = tuple(torch.from_numpy(x).to(card) for x in (
         batch.a_let, batch.b_let, batch.la, batch.lb, batch.dlo, batch.bw))
-    gp = wnw.gap_params_from_jax(ap).to(card)
+    gp = wnw.gap_params(ap).to(card)
     mm = wnw.match_mismatch(ap)
     n0 = (bn.banded_nw_fwd.launches, bn.banded_nw_chase.launches)
     for with_tb in (True, False):

@@ -1,7 +1,9 @@
 """SINTAX's bootstraps in usearch12_tpu_torch on the CPU (the kernels'
 plain PyTorch versions) against the JAX package: the boot step against
-BootEngine.run_chunk (jax on the CPU), classify_window against the host
-classifier, and -tabbedout bytes of both command lines."""
+BootEngine.run_chunk (jax on the CPU), classify_window against both
+packages' host classifiers, and -tabbedout bytes of both command lines.
+Each package builds its classifier from the same files with its own
+code."""
 
 import json
 import os
@@ -12,13 +14,16 @@ import torch
 
 import usearch12_tpu.cli as jax_cli
 import usearch12_tpu_torch.cli as port_cli
+import usearch12_tpu.amplicon.sintax as jax_sintax
+import usearch12_tpu.commands as jax_commands
+import usearch12_tpu.config as jax_config
+import usearch12_tpu.index.udb as jax_udb
+import usearch12_tpu_torch.commands as port_commands
+import usearch12_tpu_torch.config as port_config
+import usearch12_tpu_torch.index.udb as port_udb
 from tests.test_sintax_device import _gen
-from usearch12_tpu.amplicon.sintax import GlobalRand, SintaxClassifier
 from usearch12_tpu.amplicon.sintax_device import (BootEngine,
                                                   SintaxDeviceClassifier)
-from usearch12_tpu.commands import load_db
-from usearch12_tpu.config import options
-from usearch12_tpu.index.udb import UDBIndex
 from usearch12_tpu_torch.amplicon import sintax as port_sintax
 from usearch12_tpu_torch.amplicon.sintax_device import (
     SintaxTorchClassifier, TorchBootEngine)
@@ -106,11 +111,17 @@ def test_wrappers_refuse_bad_chunks():
                        torch.zeros((2, 4), dtype=torch.int32))
 
 
-def _classifier(dbf):
-    db, index = load_db(dbf)
+def _classifier(pkg, dbf):
+    """A host SintaxClassifier of the DB, built by one package (the JAX
+    package or the port) from the file with its own code."""
+    sintax, commands, config, udb = {
+        "jax": (jax_sintax, jax_commands, jax_config, jax_udb),
+        "port": (port_sintax, port_commands, port_config, port_udb)}[pkg]
+    config.options().set("randseed", "1")
+    db, index = commands.load_db(dbf)
     if index is None:
-        index = UDBIndex.from_seqdb(db)
-    return db, SintaxClassifier(db, index, GlobalRand(1))
+        index = udb.UDBIndex.from_seqdb(db)
+    return sintax.SintaxClassifier(db, index, sintax.GlobalRand(1))
 
 
 @pytest.mark.parametrize("both", [True, False])
@@ -121,25 +132,48 @@ def test_classify_window_equals_host(tmp_path, both):
     # revcomp of a few queries, so that the minus strand wins some votes
     from usearch12_tpu.alpha import revcomp
     seqs = [revcomp(s) if k % 3 == 0 else s for k, s in enumerate(seqs)]
-    options().set("randseed", "1")
-    _, host = _classifier(dbf)
-    _, dev = _classifier(dbf)
-    want = host.classify_window(seqs, both)
-    got = SintaxTorchClassifier(dev, CPU).classify_window(seqs, both)
+    want = _classifier("jax", dbf).classify_window(seqs, both)
+    assert _classifier("port", dbf).classify_window(seqs, both) == want
+    got = SintaxTorchClassifier(_classifier("port", dbf),
+                                CPU).classify_window(seqs, both)
     assert got == want
     assert {r[0] for r in got} == ({"+", "-"} if both else {"+"})
 
 
+def test_classifier_on_a_converted_db(tmp_path):
+    """A DB the JAX package loaded reaches the port through state.py; the
+    port's index and classifier on it classify as the JAX package's."""
+    from usearch12_tpu_torch import state
+    dbf, qf = _gen(tmp_path, n_db=60, n_q=16)
+    jcls = _classifier("jax", dbf)
+    db = state.seq_db(jcls.db)
+    assert db.labels == jcls.db.labels and db.get_is_nucleo()
+    assert all(np.array_equal(x, y) for x, y in zip(db.seqs, jcls.db.seqs))
+    cls = port_sintax.SintaxClassifier(db, port_udb.UDBIndex.from_seqdb(db),
+                                       port_sintax.GlobalRand(1))
+    from usearch12_tpu.io.fastx import read_fastx
+    seqs = [s for _, s, _ in read_fastx(qf)]
+    assert cls.classify_window(seqs, True) == \
+        jcls.classify_window(seqs, True)
+
+
 def test_ineligible_gives_the_reason_usable_gives(tmp_path, monkeypatch):
+    """The port's rules agree with the JAX SintaxDeviceClassifier.usable()
+    under the same incidence limit."""
     dbf, _ = _gen(tmp_path, n_db=20, n_q=1)
-    _, cls = _classifier(dbf)
+    cls, jcls = _classifier("port", dbf), _classifier("jax", dbf)
     assert port_sintax.ineligible(cls) is None
     assert SintaxTorchClassifier.usable(cls)
-    monkeypatch.setattr(SintaxDeviceClassifier, "MAX_INCIDENCE_BYTES",
-                        cls.index.params.slot_count * 19)
+    assert SintaxDeviceClassifier.usable(jcls)
+    assert port_sintax.MAX_INCIDENCE_BYTES == \
+        SintaxDeviceClassifier.MAX_INCIDENCE_BYTES
+    limit = cls.index.params.slot_count * 19
+    monkeypatch.setattr(port_sintax, "MAX_INCIDENCE_BYTES", limit)
+    monkeypatch.setattr(SintaxDeviceClassifier, "MAX_INCIDENCE_BYTES", limit)
     assert port_sintax.ineligible(cls).startswith("incidence of")
     assert not SintaxTorchClassifier.usable(cls)
-    options().set("self", True)
+    assert not SintaxDeviceClassifier.usable(jcls)
+    port_config.options().set("self", True)
     assert port_sintax.ineligible(cls) == "-self"
 
 
@@ -240,8 +274,9 @@ def test_per_query_path_equals_jax(fixture_db, tmp_path, monkeypatch):
     """Without a window classifier (no native library, or a hashed word
     index) both sintax commands classify one query at a time, with equal bytes."""
     dbf, qf = fixture_db
-    monkeypatch.setattr(SintaxClassifier, "classify_window",
-                        lambda self, seqs, both: None)
+    for sintax in (jax_sintax, port_sintax):
+        monkeypatch.setattr(sintax.SintaxClassifier, "classify_window",
+                            lambda self, seqs, both: None)
     base = ["-sintax", qf, "-db", dbf, "-strand", "both", "-quiet"]
     port = _tabbed(port_cli, tmp_path, "port", base, device="cpu")
     assert port == _tabbed(jax_cli, tmp_path, "host", base)

@@ -5,6 +5,7 @@ _gen_longseq: conserved blocks between divergent segments, so every
 query chains with every target and the holes go to the device path)."""
 
 import json
+import os
 
 import numpy as np
 import pytest
@@ -126,8 +127,8 @@ def test_other_commands_exit_2(capsys):
 def test_holes_wider_than_the_kernel_run_on_host(contigs, monkeypatch):
     """Holes whose band exceeds BW_DEV_MAX take the host C kernel within
     the same round; the queries with an indel have bands of 242 here."""
-    from usearch12_tpu_torch.engine import TorchBatchEngine
-    monkeypatch.setattr(TorchBatchEngine, "BW_DEV_MAX", 241)
+    from usearch12_tpu_torch.engine import BatchEngine
+    monkeypatch.setattr(BatchEngine, "BW_DEV_MAX", 241)
     d, qf, tf, ref = contigs
     out = d / "port_split.b6"
     ds = _run_port(d, qf, tf, ["-blast6out", str(out)], monkeypatch)
@@ -150,3 +151,38 @@ def test_no_engine_device_keeps_every_hole_on_host(contigs, monkeypatch):
     assert ds["dispatches"] == 0
     assert (wnw.wavefront_fwd.launches, wtr.wavefront_trace.launches) == \
         (n_fwd, n_trace)
+
+
+def test_perf_model_keeps_its_own_file(tmp_path, monkeypatch):
+    """The port's cost model starts from its card constants and never
+    reads the JAX package's cache file, whatever that file holds."""
+    from usearch12_tpu.engine import batch as jax_batch
+    from usearch12_tpu_torch.engine import batch as port_batch
+    assert port_batch.DevicePerfModel.CACHE != jax_batch.DevicePerfModel.CACHE
+    assert os.path.basename(port_batch.DevicePerfModel.CACHE) != \
+        os.path.basename(jax_batch.DevicePerfModel.CACHE)
+    monkeypatch.setattr(jax_batch.DevicePerfModel, "CACHE",
+                        str(tmp_path / "jax.json"))
+    monkeypatch.setattr(port_batch.DevicePerfModel, "CACHE",
+                        str(tmp_path / "port.json"))
+    for platform in ("cuda", "tpu", "auto"):
+        jm = jax_batch.DevicePerfModel(platform)
+        jm.rtt, jm.up_bw, jm.warm_tax, jm.n_obs = 9.0, 1.0, 99.0, 5
+        jm.save()
+    pm = port_batch.DevicePerfModel("cuda")
+    assert (pm.rtt, pm.up_bw, pm.dn_bw, pm.dev_rate, pm.warm_tax,
+            pm.n_obs) == (port_batch.COLD_RTT, port_batch.COLD_UP_BW,
+                          port_batch.COLD_DN_BW, port_batch.COLD_DEV_RATE,
+                          port_batch.COLD_WARM_TAX, 0)
+    pm.rtt, pm.n_obs = 0.5, 3
+    pm.save()
+    again = port_batch.DevicePerfModel("cuda")
+    assert (again.rtt, again.n_obs) == (0.5, 3)
+    assert json.loads((tmp_path / "port.json").read_text()).keys() == \
+        {"cuda/v2"}
+
+
+def test_engine_band_limit_is_the_kernels():
+    from usearch12_tpu_torch.engine import BatchEngine
+    from usearch12_tpu_torch.ops.wavefront_nw import BW_MAX
+    assert BatchEngine.BW_DEV_MAX == BW_MAX

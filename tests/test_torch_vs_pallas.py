@@ -31,7 +31,7 @@ def test_port_matches_pallas_kernels():
         b[rng.integers(0, m, m // 10)] = rng.integers(0, 4, m // 10)
         pairs.append((conv[a], conv[b]))
     dev = WavefrontNWDevice(ap, pb=8, chunk=32)
-    gp = wnw.gap_params_from_jax(ap)
+    gp = wnw.gap_params(ap)
     cpu = torch.device("cpu")
     for rho0 in (0, 1):
         grp = [p for p in pairs if (len(p[0]) - band_diag_range(

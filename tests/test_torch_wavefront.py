@@ -18,7 +18,7 @@ from usearch12_tpu.ops.wavefront_nw import WavefrontNWDevice
 from usearch12_tpu_torch.ops import wavefront_nw as wnw
 from usearch12_tpu_torch.ops import wavefront_trace as wtr
 from usearch12_tpu_torch.ops.wavefront_nw import (BW_MAX, TorchWaveAligner,
-                                                  gap_params_from_jax,
+                                                  gap_params,
                                                   native_nw_band,
                                                   nucleo_params)
 
@@ -72,7 +72,7 @@ def test_gap_params_match_jax(cls):
     base = nucleo_params(-10.3, -1.1, -0.7, -0.4)
     ap = base.hole_params(bool(cls & 1), bool(cls & 2), bool(cls & 4),
                           bool(cls & 8))
-    gp = gap_params_from_jax(ap)
+    gp = gap_params(ap)
     assert gp.dtype == torch.float32 and gp.shape == (16,)
     assert np.array_equal(gp.numpy(), WavefrontNWDevice(ap).gp[0])
     dev = WavefrontNWDevice(ap)
@@ -178,19 +178,13 @@ def _native_forward(a, b, radius, ap):
     return bits, mrow[1:], drow[lb], dlo, bw
 
 
-@pytest.mark.parametrize("seed", [11, 12])
-def test_forward_bits_match_native(seed):
-    """wavefront_fwd alone: every band cell's traceback nibble, the
-    Drow[LB] column, the last M row and Drow[LB] at (la, lb) equal the
-    host C kernel's."""
-    rng = np.random.default_rng(seed)
-    ap = nucleo_params(-10.3, -1.1, -0.7, -0.4).hole_params(
-        True, False, False, True)
-    pairs = rand_pairs(rng, 5, 10, 60, dl=10)
-    radius = 5
+def _assert_forward_matches_native(pairs, radius, ap):
+    """wavefront_fwd alone on `pairs`: every band cell's traceback
+    nibble, the Drow[LB] column, the last M row and Drow[LB] at (la, lb)
+    equal the host C kernel's."""
     la, lb, dlo, bw = wnw.pair_geometry(pairs, radius)
     w = wnw.pack_launch(pairs, la, lb, dlo, bw, CPU)
-    tb, mlast, dlb = wnw.wavefront_fwd(*w, gap_params_from_jax(ap),
+    tb, mlast, dlb = wnw.wavefront_fwd(*w, gap_params(ap),
                                        *wnw.match_mismatch(ap))
     tb = tb.numpy()
     for p, (a, b) in enumerate(pairs):
@@ -213,11 +207,35 @@ def test_forward_bits_match_native(seed):
         assert dlb[p].item() == drow_lb
 
 
+@pytest.mark.parametrize("seed", [11, 12])
+def test_forward_bits_match_native(seed):
+    rng = np.random.default_rng(seed)
+    ap = nucleo_params(-10.3, -1.1, -0.7, -0.4).hole_params(
+        True, False, False, True)
+    _assert_forward_matches_native(rand_pairs(rng, 5, 10, 60, dl=10), 5, ap)
+
+
+@pytest.mark.parametrize("radius", [0, 15, 31, 32, 63, 64])
+def test_forward_bits_match_native_at_launch_widths(radius):
+    """Bands of one and of two or three warps of lanes on the card (a
+    warp holds 32 lanes, a band up to 63), around their border steps;
+    the traceback ranges are packed back to back."""
+    rng = np.random.default_rng(40 + radius)
+    ap = nucleo_params(-10.3, -1.1, -0.7, -0.4)
+    pairs = rand_pairs(rng, 5, 1, 2 * radius + 40, dl=radius + 3)
+    la, lb, dlo, bw = wnw.pair_geometry(pairs, radius)
+    w = wnw.pack_launch(pairs, la, lb, dlo, bw, CPU)
+    nbytes = wtr.tb_nbytes(la, lb, bw)
+    assert w.tb_bytes == nbytes.sum() and int(w.tb_off[0]) == 0
+    assert np.array_equal(w.tb_off[1:].numpy(), np.cumsum(nbytes)[:-1])
+    _assert_forward_matches_native(pairs, radius, ap)
+
+
 def test_wrappers_reject_other_devices_and_bad_inputs():
     rng = np.random.default_rng(1)
     pairs = rand_pairs(rng, 2, 10, 20)
     w = wnw.pack_launch(pairs, *wnw.pair_geometry(pairs, 4), CPU)
-    gp = gap_params_from_jax(default_ap())
+    gp = gap_params(default_ap())
     meta = wnw.WaveLaunch(*(x.to("meta") for x in w[:7]), w.tb_bytes)
     with pytest.raises(ValueError):
         wnw.wavefront_fwd(*meta, gp.to("meta"), 1.0, -2.0)
@@ -235,3 +253,25 @@ def test_wrappers_reject_other_devices_and_bad_inputs():
     with pytest.raises(ValueError):
         TorchWaveAligner(default_ap(), CPU).align(pairs, 4, nucleo=False)
     assert wnw.wavefront_fwd.launches == 0
+
+
+@pytest.mark.parametrize("cls", [0, 5, 15])
+def test_state_converts_jax_aln_params(cls):
+    """The JAX package's AlnParams reach the port through state.py as the
+    port's own, field for field, and align as the oracle does."""
+    from usearch12_tpu.scoring import AlnParams as JaxAlnParams
+    from usearch12_tpu.scoring import nuc_mx as jax_nuc_mx
+    from usearch12_tpu_torch import state
+    from usearch12_tpu_torch.scoring import AlnParams
+    jap = JaxAlnParams(nucleo=True, subst_mx=jax_nuc_mx(1.0, -2.0))
+    jap.init4(-10.3, -1.1, -0.7, -0.4)
+    jap = jap.hole_params(bool(cls & 1), bool(cls & 2), bool(cls & 4),
+                          bool(cls & 8))
+    ap = state.aln_params(jap)
+    assert isinstance(ap, AlnParams) and ap.nucleo
+    for name in state.PENALTIES:
+        assert getattr(ap, name) == getattr(jap, name), name
+    assert np.array_equal(ap.subst_mx, jap.subst_mx)
+    assert ap.subst_mx is not jap.subst_mx
+    rng = np.random.default_rng(60 + cls)
+    assert_matches_oracle(rand_pairs(rng, 4, 20, 80, dl=5), 8, ap)

@@ -93,7 +93,8 @@ def load_library():
             lib.wavefront_fwd_launch.argtypes = [
                 vp, vp, i32, i32,              # a_let, b_let, amax, bmax
                 vp, vp, vp, vp,                # la, lb, dlo, bw
-                vp, vp, f32, f32,              # tb_off, gp, match, mismatch
+                vp, vp, vp, f32, f32,          # tb_off, order, gp, match,
+                                               # mismatch
                 i32, i32,                      # n_pairs, lanes
                 vp, vp, vp,                    # tb, mlast, dlb
                 vp]                            # stream

@@ -1,33 +1,361 @@
-"""The sintax command of the port: usearch12_tpu's sintax()
-(usearch12_tpu/amplicon/sintax.py) with its device choice replaced.
+"""SINTAX k-mer bootstrap taxonomy classifier (src/sintaxsearcher.cpp)
+and the -sintax command.
 
-The boots run on the card (SintaxTorchClassifier) when -sintax_device
-asks for it, or, unless -no_sintax_device is given, when the DB has at
-least AUTO_MIN_TARGETS targets.  Either way nothing falls back: a build,
-launch or memory error on the card raises.  Runs that the device path
-cannot take (ineligible(): -self, a hashed index, an incidence over its
-limit) run on the host whatever the flags say, as in the JAX package,
-and the reason goes into the USEARCH_DEVICE_STATS record.  Everything
-else (classifier, windows of 512 queries, tally, output rows) is the JAX
-package's.  torch is imported only when the card is chosen.
+100 bootstrap iterations; each samples 32 query unique words (private LCG,
+Numerical-Recipes constants, seeded from -randseed per query) and
+scatter-adds their UDB postings rows; the arg-max target (ties broken with
+the reference's global lagged-MWC RNG) votes for its taxonomy string.
+Per-rank confidence = cumulative-product bootstrap fraction.
+
+SintaxClassifier is the host path (C per window, numpy per query).  The
+boots run on the card (amplicon/sintax_device.py:SintaxTorchClassifier)
+when -sintax_device asks for it, or, unless -no_sintax_device is given,
+when the DB has at least AUTO_MIN_TARGETS targets.  Either way nothing
+falls back: a build, launch or memory error on the card raises.  Runs
+that the device path cannot take (ineligible(): -self, a hashed index, an
+incidence over MAX_INCIDENCE_BYTES) run on the host whatever the flags
+say, and the reason goes into the USEARCH_DEVICE_STATS record.  torch is
+imported only when the card is chosen.
 """
 
 from __future__ import annotations
 
+from typing import TYPE_CHECKING, List, Optional, Tuple
+
 import json
 import os
-from typing import TYPE_CHECKING, Optional, Tuple
 
-from usearch12_tpu.alpha import revcomp
-from usearch12_tpu.amplicon.sintax import GlobalRand, SintaxClassifier
-from usearch12_tpu.amplicon.sintax_device import SintaxDeviceClassifier
-from usearch12_tpu.commands import load_db
-from usearch12_tpu.config import options
-from usearch12_tpu.index.udb import UDBIndex
-from usearch12_tpu.io.fastx import read_fastx
+import numpy as np
+
+from ..config import options
+from ..io.seqdb import SeqDB
+from ..index.udb import UDBIndex, UDBParams
 
 if TYPE_CHECKING:
     from ..device import DeviceLike
+
+M32 = 0xFFFFFFFF
+
+
+class GlobalRand:
+    """The reference's global RNG (src/myutils.cpp:1757-1838): lagged
+    multiply-with-carry seeded from a small LCG."""
+
+    def __init__(self, seed: int) -> None:
+        state = seed & M32
+        for _ in range(10):
+            state = (state * 214013 + 2531011) & M32
+        x = []
+        for _ in range(5):
+            state = (state * 214013 + 2531011) & M32
+            x.append(state)
+        self.x = x
+        for _ in range(100):
+            self._inc()
+
+    def _inc(self) -> None:
+        x = self.x
+        s = (2111111111 * x[3] + 1492 * x[2] + 1776 * x[1]
+             + 5115 * x[0] + x[4])
+        x[3] = x[2]
+        x[2] = x[1]
+        x[1] = x[0]
+        x[4] = (s >> 32) & M32
+        x[0] = s & M32
+
+    def randu32(self) -> int:
+        self._inc()
+        return self.x[0]
+
+
+def _next_rand(r: int) -> int:
+    """Per-query boot LCG (src/sintaxsearcher.cpp:77-82)."""
+    return (1664525 * r + 1013904223) & M32
+
+
+def get_tax_str(label: str) -> str:
+    for field in label.split(";"):
+        if field.startswith("tax="):
+            return field[4:]
+    return ""
+
+
+def tax_names(tax_str: str) -> List[str]:
+    names = [n for n in tax_str.split(",")]
+    for n in names:
+        if len(n) < 3 or n[1] != ":":
+            raise SystemExit(f"Missing x: in tax={tax_str}")
+    return names
+
+
+def name_in_tax_str(tax_str: str, name: str) -> bool:
+    """NameIsInTaxStr (src/tax.cpp:299-308): substring match terminated by
+    ',' or end."""
+    n = tax_str.find(name)
+    if n < 0:
+        return False
+    rest = tax_str[n + len(name):]
+    return rest == "" or rest[0] == ","
+
+
+class SintaxClassifier:
+    _es = None
+    _lib = False
+
+    def __init__(self, db: SeqDB, index: UDBIndex, grand: GlobalRand) -> None:
+        self.db = db
+        self.index = index
+        self.grand = grand
+        self.tax_strs = [get_tax_str(l) for l in db.labels]
+        o = options()
+        self.boots = o.uns("boots")
+        self.cutoff = o.flt("sintax_cutoff")
+        self.randseed = o.uns("randseed")
+        s = o.str("boot_subset", "") if o.filled("boot_subset") else "32"
+        if not s:
+            s = "32"
+        if s.startswith("/"):
+            self.boot_subset_divide = True
+            self.boot_subset = int(s[1:])
+        else:
+            self.boot_subset_divide = False
+            self.boot_subset = int(s)
+        # flatten postings for the shuffle counting
+        self.index._flatten()
+        # numeric taxonomy structures so classify() avoids per-query
+        # string work: distinct tax strings, their lexicographic rank,
+        # per-tax name lists, and a name-containment matrix with
+        # NameIsInTaxStr semantics (src/tax.cpp:299-308)
+        uniq = sorted(set(self.tax_strs))
+        tax_to_id = {t: i for i, t in enumerate(uniq)}
+        self._tax_id = np.array([tax_to_id[t] for t in self.tax_strs],
+                                dtype=np.int32)
+        self._uniq_tax = uniq          # index = tax id, already lex-sorted
+        def _names_or_none(t):
+            try:
+                return tax_names(t) if t else []
+            except SystemExit:
+                return None    # malformed: only an error if it ever wins
+        self._tax_names = [_names_or_none(t) for t in uniq]
+        all_names = sorted({n for ns in self._tax_names if ns
+                            for n in ns})
+        name_to_id = {n: i for i, n in enumerate(all_names)}
+        self._name_ids = [np.array([name_to_id[n] for n in ns], np.int32)
+                          if ns is not None else None
+                          for ns in self._tax_names]
+        k, nn = len(uniq), len(all_names)
+        contains = np.zeros((k, nn), dtype=bool)
+        for ti, t in enumerate(uniq):
+            for ni, n in enumerate(all_names):
+                if name_in_tax_str(t, n):
+                    contains[ti, ni] = True
+        self._contains = contains
+
+    def _run_boots(self, uw, nuw, seq_count, starts, sizes, postings, m):
+        """All boots' (winner index, word count): native when available
+        (sintax_boots_c — both RNGs bit-exact, plus in-C winner-tax
+        tally), numpy fallback.  The native path also sets
+        self._c_tally = (tax_ids, counts, top_word_count)."""
+        lib = self._lib
+        if lib is False:
+            from ..native import get_lib
+            lib = self._lib = get_lib()
+        self._c_tally = None
+        if lib is not None and postings is not None:
+            if self._es is None:
+                es = self._es = lib.engine_scratch_create()
+                self._out_ti = np.empty(self.boots, np.int32)
+                self._out_u = np.empty(self.boots, np.int32)
+                self._out_txi = np.empty(self.boots, np.int32)
+                self._out_txc = np.empty(self.boots, np.int32)
+                self._out_twc = np.empty(1, np.int32)
+                # the global RNG state lives in _gx between native calls;
+                # grand.x is only synced on demand (sync_grand)
+                self._gx = np.array(self.grand.x, dtype=np.uint64)
+                # args that never change across queries, prebound once
+                self._pre = (es, starts.ctypes.data, postings.ctypes.data,
+                             seq_count, self.boots, self.randseed,
+                             self._gx.ctypes.data,
+                             self._tax_id.ctypes.data,
+                             self._out_ti.ctypes.data,
+                             self._out_u.ctypes.data,
+                             self._out_txi.ctypes.data,
+                             self._out_txc.ctypes.data,
+                             self._out_twc.ctypes.data)
+            (es, p_st, p_po, p_sc, p_boots, p_seed, p_gx, p_tax,
+             p_ti, p_u, p_txi, p_txc, p_twc) = self._pre
+            uw_c = uw if (uw.dtype == np.int64 and
+                          uw.flags["C_CONTIGUOUS"]) else \
+                np.ascontiguousarray(uw, dtype=np.int64)
+            ntax = lib.sintax_boots_c(
+                es, uw_c.ctypes.data, nuw, p_st, p_po, p_sc,
+                p_boots, m, p_seed, p_gx, p_tax, p_ti, p_u,
+                p_txi, p_txc, p_twc)
+            if ntax > 0:
+                self._c_tally = (self._out_txi[:ntax].tolist(),
+                                 self._out_txc[:ntax].tolist(),
+                                 int(self._out_twc[0]))
+            return self._out_ti, self._out_u
+        # numpy fallback: draw picks up front, one scatter-add, per-boot
+        # tie-break with the global RNG
+        r = self.randseed
+        picks = np.empty(self.boots * m, dtype=np.int64)
+        for k in range(self.boots * m):
+            r = _next_rand(r)
+            picks[k] = r % nuw
+        words = uw[picks]
+        seg_sizes = sizes[words]
+        total = int(seg_sizes.sum())
+        U = np.zeros((self.boots, seq_count), dtype=np.int32)
+        if total:
+            base = np.repeat(starts[words], seg_sizes)
+            offs = np.arange(total) - np.repeat(
+                np.cumsum(seg_sizes) - seg_sizes, seg_sizes)
+            flat = postings[base + offs]
+            pick_boot = np.arange(self.boots * m) // m
+            boot_ids = np.repeat(pick_boot, seg_sizes)
+            np.add.at(U, (boot_ids, flat), 1)
+        top_us = U.max(axis=1) if seq_count else np.zeros(self.boots, int)
+        out_ti = np.zeros(self.boots, np.int32)
+        out_u = np.zeros(self.boots, np.int32)
+        for boot in range(self.boots):
+            top_u = int(top_us[boot])
+            if top_u == 0:
+                tops = np.arange(seq_count, dtype=np.int64)
+            else:
+                tops = np.nonzero(U[boot] == top_u)[0]
+            rr = self.grand.randu32() % len(tops)
+            out_ti[boot] = int(tops[rr])
+            out_u[boot] = top_u
+        return out_ti, out_u
+
+    def classify_window(self, seqs, both: bool):
+        """Window of queries through sintax_window_c: per query the
+        whole classify pipeline (both strands, unique words, boots,
+        tally, strand vote) in one C call.  Returns a list of
+        (strand_char, ids, counts, last_twc) or None (no native lib /
+        hashed dictionary)."""
+        lib = self._lib
+        if lib is False:
+            from ..native import get_lib
+            lib = self._lib = get_lib()
+        if (lib is None or self.index.params.hashed
+                or self.index._postings is None):
+            return None
+        import ctypes
+        n = len(seqs)
+        if n == 0:
+            return []
+        if self._es is None:
+            self._es = lib.engine_scratch_create()
+            self._gx = np.array(self.grand.x, dtype=np.uint64)
+        params = self.index.params
+        if getattr(self, "_win_ctl", None) is None:
+            from ..alpha import (CHAR_TO_LETTER_NUCLEO,
+                                 CHAR_TO_LETTER_AMINO, CHAR_TO_COMP_CHAR,
+                                 IS_LOWER)
+            ctl = (CHAR_TO_LETTER_NUCLEO if params.is_nucleo
+                   else CHAR_TO_LETTER_AMINO).copy()
+            ctl[IS_LOWER] = 0xFF
+            self._win_ctl = np.ascontiguousarray(ctl)
+            self._win_comp = np.ascontiguousarray(CHAR_TO_COMP_CHAR)
+        lens = np.fromiter((len(s) for s in seqs), np.int64, n)
+        offs = np.zeros(n + 1, np.int64)
+        np.cumsum(lens, out=offs[1:])
+        qcat = np.concatenate(
+            [np.ascontiguousarray(s) for s in seqs]) if n else \
+            np.zeros(0, np.uint8)
+        B = self.boots
+        out_ntax = np.empty(n, np.int32)
+        out_ids = np.empty(n * B, np.int32)
+        out_cnts = np.empty(n * B, np.int32)
+        out_twc = np.empty(n, np.int32)
+        out_strand = np.empty(n, np.uint8)
+        lib.sintax_window_c(
+            self._es, qcat.ctypes.data, offs.ctypes.data, n,
+            self._win_comp.ctypes.data, int(both),
+            self._win_ctl.ctypes.data, params.alpha_size,
+            params.word_length, params.slot_count,
+            self.index._starts.ctypes.data,
+            self.index._postings.ctypes.data, self.index.seq_count,
+            B, self.boot_subset, int(self.boot_subset_divide),
+            self.randseed, self._gx.ctypes.data,
+            self._tax_id.ctypes.data,
+            out_ntax.ctypes.data, out_ids.ctypes.data,
+            out_cnts.ctypes.data, out_twc.ctypes.data,
+            out_strand.ctypes.data)
+        res = []
+        ids_l = out_ids.tolist()
+        cnts_l = out_cnts.tolist()
+        for i in range(n):
+            k = int(out_ntax[i])
+            res.append((chr(out_strand[i]) if out_strand[i] else "+",
+                        ids_l[i * B:i * B + k],
+                        cnts_l[i * B:i * B + k],
+                        int(out_twc[i])))
+        return res
+
+    def classify(self, q_seq: np.ndarray):
+        """Returns (pred names, Ps, top_word_count)."""
+        params = self.index.params
+        uw = params.unique_words(q_seq)
+        nuw = len(uw)
+        if nuw < 8:
+            return [], [], 0
+
+        seq_count = self.index.seq_count
+        starts = self.index._starts
+        sizes = self.index._sizes
+        postings = self.index._postings
+        m = (nuw // self.boot_subset if self.boot_subset_divide
+             else self.boot_subset)
+
+        boot_ti, boot_u = self._run_boots(uw, nuw, seq_count, starts,
+                                          sizes, postings, m)
+        if self._c_tally is not None:
+            # already in final CountMapToVecs order (C-side quicksort)
+            ids, counts, top_word_count = self._c_tally
+        else:
+            top_word_count = int(boot_u.max()) if self.boots else 0
+            # tax ids are assigned in lexicographic order, so np.unique's
+            # ascending ids reproduce CountMapToVecs' map order exactly
+            uti, ucnt = np.unique(self._tax_id[boot_ti],
+                                  return_counts=True)
+            from ..search.hitmgr import quick_sort_order
+            order = quick_sort_order(ucnt.tolist(), desc=True)
+            ids = [int(uti[i]) for i in order]
+            counts = [int(ucnt[i]) for i in order]
+
+        pred, ps = self.pred_from_tally(ids, counts)
+        return pred, ps, top_word_count
+
+    def pred_from_tally(self, ids, counts):
+        """pred names + cumulative Ps from the ordered (tax id, count)
+        tally (the tail of Classify, src/sintaxsearcher.cpp:200-228)."""
+        top_id = ids[0]
+        top_count = counts[0]
+        pred = self._tax_names[top_id]
+        if pred is None:             # malformed winner: reference dies here
+            pred = tax_names(self._uniq_tax[top_id])
+        name_ids = self._name_ids[top_id]
+        if len(ids) > 1 and len(name_ids):
+            other = self._contains[np.array(ids[1:], np.int64)][:, name_ids]
+            extra = (np.array(counts[1:],
+                              np.int64)[:, None] * other).sum(axis=0)
+        else:
+            extra = np.zeros(len(name_ids), np.int64)
+        ps = []
+        prod_p = 1.0
+        for i, _name in enumerate(pred):
+            cnt = top_count + int(extra[i])
+            # the reference is compiled -ffast-math: cnt/BOOT_ITERS is
+            # emitted as cnt * (1/BOOT_ITERS), which differs in the last
+            # ulp and can flip the 4th printed decimal
+            p = cnt * (1.0 / self.boots)
+            prod_p *= p
+            ps.append(prod_p)
+        return pred, ps
+
 
 # Auto gate: the card takes a DB of at least this many targets.  Measured
 # on an H100 (700 W) with the port's command line as a fresh process per
@@ -37,14 +365,15 @@ if TYPE_CHECKING:
 # classification itself is about 11x faster on the card at 60,000.
 AUTO_MIN_TARGETS = 64000
 WINDOW = 512
+# largest dense (V, T) int8 incidence the card path takes; the JAX
+# package's TPU limit, not yet measured on the card
+MAX_INCIDENCE_BYTES = 6 << 30
 
 
 def ineligible(sc: SintaxClassifier) -> Optional[str]:
-    """Why the device path cannot take this run, or None: the rules of
-    the JAX package's SintaxDeviceClassifier.usable()
-    (sintax_device.py:268-278), with the reason each gives.  The
-    incidence limit (MAX_INCIDENCE_BYTES, 6 GiB of V x T int8) is the
-    TPU's."""
+    """Why the device path cannot take this run, or None, with the reason
+    for each rule: -self, a hashed word index, no postings, an incidence
+    over MAX_INCIDENCE_BYTES."""
     index = sc.index
     if options().flag("self"):
         return "-self"
@@ -54,7 +383,7 @@ def ineligible(sc: SintaxClassifier) -> Optional[str]:
     if index._postings is None:
         return "no postings"
     nbytes = index.params.slot_count * max(index.seq_count, 1)
-    limit = SintaxDeviceClassifier.MAX_INCIDENCE_BYTES
+    limit = MAX_INCIDENCE_BYTES
     if nbytes > limit:
         return f"incidence of {nbytes} bytes over {limit}"
     return None
@@ -78,7 +407,7 @@ def choose_device(cls: SintaxClassifier) -> Tuple[bool, str]:
 
 
 def _row(label, c_strand, pred, ps, last_twc, cutoff) -> str:
-    """One -tabbedout line (sintax.py:374-391)."""
+    """One -tabbedout line."""
     if last_twc == 0:
         return label + "\t*\t*\t*\n"
     out = []
@@ -97,6 +426,7 @@ def _row(label, c_strand, pred, ps, last_twc, cutoff) -> str:
 def sintax(query_path: Optional[str], device: DeviceLike = None) -> None:
     """-sintax: classify every query against -db; `device` is resolved
     only when the card is chosen."""
+    from ..commands import load_db
     o = options()
     db, index = load_db(o.str("db"))
     if index is None:
@@ -150,6 +480,7 @@ def _classify_windows(cls, dev_cls, query_path, both, cutoff, f) -> int:
         seqs.clear()
 
     n = 0
+    from ..io.fastx import read_fastx
     for label, seq, _q in read_fastx(query_path, stream=True):
         if len(seq) == 0:
             continue
@@ -163,8 +494,10 @@ def _classify_windows(cls, dev_cls, query_path, both, cutoff, f) -> int:
 
 
 def _classify_each(cls, query_path, both, cutoff, f) -> None:
-    """One query at a time (sintax.py:496-517), where no window path
-    exists (no native library, or a hashed index)."""
+    """One query at a time, where no window path exists (no native
+    library, or a hashed index)."""
+    from ..alpha import revcomp
+    from ..io.fastx import read_fastx
     for label, seq, _q in read_fastx(query_path, stream=True):
         if len(seq) == 0:
             continue
@@ -178,7 +511,7 @@ def _classify_each(cls, query_path, both, cutoff, f) -> None:
         else:
             c_strand, pred, ps = "-", pred_r, ps_r
         # the reference's '*' row reads the last classified strand's
-        # top word count (sintax.py:508-512)
+        # top word count (src/sintaxsearcher.cpp:51-72, WriteTabbed)
         last_twc = twc_r if both else twc_f
         if f is not None:
             f.write(_row(label, c_strand, pred, ps, last_twc, cutoff))
@@ -186,8 +519,8 @@ def _classify_each(cls, query_path, both, cutoff, f) -> None:
 
 def _write_stats(device: bool, reason: str, queries: int,
                  targets: int) -> None:
-    """The JAX sintax()'s USEARCH_DEVICE_STATS record, with the reason
-    for the device choice."""
+    """The USEARCH_DEVICE_STATS record of the run, with the reason for the
+    device choice."""
     path = os.environ.get("USEARCH_DEVICE_STATS")
     if path:
         with open(path, "a") as sf:

@@ -1,12 +1,16 @@
-"""Command line of the port: the JAX package's commands and options, with
+"""usearch-compatible command line driver of the port, with
 usearch_global's hole alignment and sintax's bootstraps on the card.
+
+Invocation mirrors the reference (src/usearch_main.cpp, src/getcmd.cpp):
+the first -flag that names a command selects it; all other -flag [value]
+pairs populate the option registry.
 
     python -m usearch12_tpu_torch.cli -usearch_global q.fa -db db.fa \\
         -id 0.97 -strand plus -blast6out hits.b6
     python -m usearch12_tpu_torch.cli -sintax q.fa -db ref.fa \\
         -strand both -tabbedout tax.txt
 
-Every command writes the bytes that python -m usearch12_tpu.cli writes.
+Every command writes the bytes that the JAX package's CLI writes.
 Three device paths are not ported yet and exit 2: -mesh (usearch_global,
 cluster_mt), -device_rank (usearch_global) and -xprof.  torch is
 imported only by the paths that run on the card, so a host command
@@ -20,13 +24,74 @@ import sys
 import time
 from typing import TYPE_CHECKING, List, Optional
 
-import usearch12_tpu
-from usearch12_tpu import runlog
-from usearch12_tpu.cli import parse_argv
-from usearch12_tpu.config import options
+from . import __version__, runlog
+from .config import options, reset_options
 
 if TYPE_CHECKING:
     from .device import DeviceLike
+
+COMMANDS = [
+    "cluster_fast", "cluster_otus", "cluster_smallmem", "cluster_mt",
+    "closed_ref", "fastq_filter", "fastq_filter2", "fastq_join",
+    "fastq_mergepairs", "fastx_orient", "fastx_uniques", "fastx_truncate",
+    "fastx_get_sample_names", "makeudb_usearch", "sintax_summary",
+    "uchime3_denovo", "unoise3", "usearch_global", "usearch_local",
+    "sintax", "otutab", "search_16s", "udb2bitvec", "test", "version",
+]
+
+_FLAG_OPTS_NO_VALUE = {
+    "quiet", "self", "notself", "selfid", "gaforce", "fulldp", "quicksort",
+    "top_hit_only", "top_hits_only", "output_no_hits", "show_termgaps",
+    "hardmask", "sizein",
+    "sizeout", "fastq_eeout", "fastq_nostagger",
+    "interleaved", "uc_hitsonly", "trunclabels",
+    "maxskew", "tov", "log_objmgr_stats", "log_touched_opts",
+    "no_progress", "version",
+    "use_cpu_oracle", "notrunclabels", "orf_plusonly",
+    "engine_device", "no_engine_device", "use_serial_driver", "device_rank",
+    "no_device_rank", "sintax_device", "no_sintax_device",
+    "ignore_label_mismatches", "fastq_forceq", "fastq_noguess", "keepgaps",
+}
+
+
+def parse_argv(argv: List[str]):
+    """Returns (cmd, cmd_arg) and fills the option registry."""
+    opts = reset_options()
+    opts.argv = list(argv)      # for PrintCmdLine-style file banners
+    cmd = None
+    cmd_arg = None
+    i = 0
+    while i < len(argv):
+        tok = argv[i]
+        if not tok.startswith("-"):
+            raise SystemExit(f"Expected -flag, got '{tok}'")
+        name = tok.lstrip("-")
+        if name in COMMANDS:
+            if cmd is not None:
+                raise SystemExit(f"Two commands: {cmd}, {name}")
+            cmd = name
+            # command flag takes the input filename as its value (if any)
+            if i + 1 < len(argv) and not argv[i + 1].startswith("-"):
+                cmd_arg = argv[i + 1]
+                i += 1
+        elif name in _FLAG_OPTS_NO_VALUE:
+            opts.declare(name, "flag", False)
+            opts.set(name, True)
+        else:
+            # strict registry like the reference's MyCmdLine
+            # (src/opts.cpp): options not in the o_*.h lists (plus our
+            # documented extensions) are rejected
+            if not opts.known(name):
+                raise SystemExit(f"Unknown command-line option -{name}")
+            if i + 1 >= len(argv):
+                raise SystemExit(f"Command line error, missing value for '{name}'")
+            val = argv[i + 1]
+            opts.declare(name, "str")
+            opts.set(name, val)
+            i += 1
+        i += 1
+    return cmd, cmd_arg
+
 
 
 def _unported(cmd: str) -> List[str]:
@@ -53,7 +118,7 @@ def main(argv: Optional[List[str]] = None,
         print("No command given", file=sys.stderr)
         return 1
     if cmd == "version":
-        print(f"usearch12_tpu v{usearch12_tpu.__version__}")
+        print(f"usearch12_tpu v{__version__}")
         return 0
     unported = _unported(cmd)
     if unported:
@@ -63,10 +128,12 @@ def main(argv: Optional[List[str]] = None,
     o = options()
     f_log = None
     if o.filled("log"):
-        # the JAX CLI's -log header (usearch12_tpu/cli.py:96-107)
+        # the reference's SetLogFileName / LogElapsedTimeAndRAM
+        # (src/myutils.cpp:843,1451); the program name stays
+        # usearch12_tpu, as in every output of the port
         f_log = open(o.str("log"), "w")
         f_log.write(" ".join(["usearch12_tpu"] + argv) + "\n")
-        f_log.write(f"usearch12_tpu v{usearch12_tpu.__version__}\n\n")
+        f_log.write(f"usearch12_tpu v{__version__}\n\n")
         f_log.write(time.strftime("Started %a %b %d %H:%M:%S %Y\n\n"))
     t0 = time.time()
     from . import commands

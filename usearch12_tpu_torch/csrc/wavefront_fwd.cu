@@ -10,20 +10,28 @@
 // scores 0.
 //
 // What bounds it on the card: each pair is a chain of la + lb dependent
-// anti-diagonals, each a handful of float adds per cell and one block
-// barrier.  It writes half a byte of traceback per band cell and reads
-// a letter pair per cell, far below the card's memory bandwidth, so the
-// limit is barrier latency and instruction throughput, not bytes.
+// anti-diagonals of a handful of float adds and compares per cell.  It
+// writes half a byte of traceback per band cell, far below the card's
+// memory bandwidth, so the limit is the latency of one anti-diagonal
+// step and the instructions per cell, not bytes.  A launch with few long
+// pairs runs one pair per SM, where a step costs the sum of its
+// instructions' latencies; so the design cuts the instructions of a step.
 //
-// Design: one thread block per pair, one thread per band lane (at most
-// (bw + 1) / 2 of them).  The M, D and I values of anti-diagonals t-1
-// and t-2 live in shared memory (a few KB per block), so many blocks
-// share an SM and hide each other's barrier latency.  One __syncthreads
-// per anti-diagonal.  Neighbouring lanes pack their two nibbles with a
-// warp shuffle, so each traceback byte is written by one thread.  None
-// of the TPU layout carries over (pairs per vector row, lane rolls,
-// packed insert tiles, interior-chunk flags): each thread addresses its
-// letters and its neighbours directly.
+// Design: one block per pair, ceil(nlane / 32) warps, one thread per
+// band lane.  Each thread keeps its lane's M of anti-diagonals t-1 and
+// t-2 and its D and I of t-1 in registers.  On a step of parity 1 the
+// cell takes D from lane u+1, on parity 0 I from lane u-1: one warp
+// shuffle, and at a warp boundary one shared slot per warp, written by
+// the warp's first (D) or last (I) lane before the step's barrier and
+// read after it.  Steps run in pairs, so the parity is known at compile
+// time; a lane's cell moves by fixed rules (j + 1 after parity 0, i + 1
+// after parity 1), so the thread loads one new letter per step into
+// registers; the row-0 and column-0 terms are taken only on the first
+// steps, until every lane's cell has left row 0 and column 0.  Pairs are
+// taken longest first.  (Four one-warp pairs a block with no block
+// barrier, for bands up to 63, measured slower than one-warp blocks.)
+// None of the TPU layout carries over (pairs per vector row, lane rolls,
+// packed insert tiles, interior-chunk flags).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -fmad=false (see
 // usearch12_tpu_torch/_build.py).  -fmad=false keeps every add a single
@@ -31,74 +39,49 @@
 
 #include "wavefront.cuh"
 
-__global__ void wavefront_fwd_kernel(
-    const uint8_t* __restrict__ a_let, const uint8_t* __restrict__ b_let,
-    int amax, int bmax,
-    const int* __restrict__ la_v, const int* __restrict__ lb_v,
-    const int* __restrict__ dlo_v, const int* __restrict__ bw_v,
-    const long long* __restrict__ tb_off, const float* __restrict__ gp,
-    float match, float mismatch,
-    uint8_t* __restrict__ tb, float* __restrict__ mlast,
-    float* __restrict__ dlb_out) {
-  extern __shared__ float smem[];
-  const int p = blockIdx.x;
-  const int u = threadIdx.x;
-  const int W = blockDim.x;          // lanes in this launch, multiple of 32
-  const int S = W + 2;               // one NEG guard slot on each side
-  // ring buffers, index [t & 1]: M holds M(t-2) on entry to step t and
-  // M(t) on exit; D and I hold step t-1 in slot (t-1) & 1
-  float* Ms = smem;
-  float* Ds = smem + 2 * S;
-  float* Is = smem + 4 * S;
-  float* dlb_s = smem + 6 * S;       // the Drow[LB] value carried row to row
+#define FULL_MASK 0xffffffffu
 
-  const int la = la_v[p], lb = lb_v[p], dlo = dlo_v[p], bw = bw_v[p];
-  const int nlane = ut_nlane(bw);
-  const int nb = ut_nbytes(bw);
-  const float open_a = gp[GP_OPEN_A], open_b = gp[GP_OPEN_B];
-  const float ext_a = gp[GP_EXT_A], ext_b = gp[GP_EXT_B];
-  const float l_open_a = gp[GP_L_OPEN_A], l_open_b = gp[GP_L_OPEN_B];
-  const float l_ext_a = gp[GP_L_EXT_A], l_ext_b = gp[GP_L_EXT_B];
-  const float r_open_b = gp[GP_R_OPEN_B], r_ext_b = gp[GP_R_EXT_B];
+// One thread's lane of one pair: constants, the lane's cell (i, j) and
+// letters on the current anti-diagonal, and M, D, I of the last ones.
+struct Lane {
+  int la, lb, nb, u, lane, warp;
+  bool in_band, ok0, ok1;        // u < nlane; a band lane at parity 0, 1
+  float open_a, open_b, ext_a, ext_b, l_open_a, l_open_b, l_ext_a, l_ext_b;
+  float r_open_b, r_ext_b, match, mismatch;
+  const uint8_t* A;
+  const uint8_t* B;
+  uint8_t* T;                    // the current anti-diagonal's bytes
+  float* ML;
+  float* xd;                     // xd[w], D of warp w's lane 0
+  float* xi;                     // xi[w + 1], I of warp w's lane 31
+  float* dlb;                    // Drow[LB], carried row to row
+  int i, j, ca, cb;
+  float m1, m2, d1, i1;          // M(t-1), M(t-2), D(t-1), I(t-1)
 
-  const uint8_t* A = a_let + (size_t)p * amax;
-  const uint8_t* B = b_let + (size_t)p * bmax;
-  uint8_t* T = tb + tb_off[p];
-  float* ML = mlast + (size_t)p * bmax;
-
-  for (int k = u; k < 6 * S + 1; k += W) smem[k] = UT_NEG;
-  for (int j = u; j < bmax; j += W) ML[j] = UT_NEG;
-  __syncthreads();
-
-  const int steps = la + lb;   // last cell at la+lb-2, last Drow[LB] at la-1+lb
-  for (int t = 0; t < steps; ++t) {
-    const int rho = (la - t - dlo) & 1;
-    const int dstar = dlo + rho + 2 * u;
-    const int j = (dstar - la + t) >> 1;     // exact: the numerator is even
-    const int i = t - j;
-    const int umax = (bw - 1 - rho) >> 1;
-    const bool valid = u <= umax && i >= 0 && i < la && j >= 0 && j < lb;
-
-    float* Mc = Ms + (t & 1) * S + 1;
-    const float* Dp = Ds + ((t + 1) & 1) * S + 1;
-    const float* Ip = Is + ((t + 1) & 1) * S + 1;
-    float* Dc = Ds + (t & 1) * S + 1;
-    float* Ic = Is + (t & 1) * S + 1;
-
-    float m_in = Mc[u];                   // M(i-1, j-1)
-    if (i == 0 && j == 0) m_in = 0.0f;    // DPM[0][0]
-    const float d_in = Dp[u + rho];       // D(i-1, j)
-    const float i_in = Ip[u + rho - 1];   // I(i, j-1)
-
-    float sub = 0.0f;
-    if (valid) {
-      const int ca = A[i], cb = B[j];
-      if (ca < 4 && cb < 4) sub = ca == cb ? match : mismatch;
+  // anti-diagonal t of parity RHO; BORDER: some lane may be on row 0 or
+  // column 0
+  template <int RHO, bool BORDER>
+  __device__ __forceinline__ void step() {
+    float d_in, i_in;
+    if (RHO) {                                   // D(i-1, j) of lane u+1
+      d_in = __shfl_down_sync(FULL_MASK, d1, 1);
+      if (lane == 31) d_in = xd[warp + 1];
+      i_in = i1;                                 // I(i, j-1) of lane u
+    } else {
+      d_in = d1;                                 // D(i-1, j) of lane u
+      i_in = __shfl_up_sync(FULL_MASK, i1, 1);   // I(i, j-1) of lane u-1
+      if (lane == 0) i_in = xi[warp];
     }
-    const float oa = i == 0 ? l_open_a : open_a;
-    const float ea = i == 0 ? l_ext_a : ext_a;
-    const float ob = j == 0 ? l_open_b : open_b;
-    const float eb = j == 0 ? l_ext_b : ext_b;
+    float m_in = m2;                             // M(i-1, j-1)
+    if (BORDER && i == 0 && j == 0) m_in = 0.0f; // DPM[0][0]
+    const bool valid = (RHO ? ok1 : ok0) && (unsigned)i < (unsigned)la &&
+                       (unsigned)j < (unsigned)lb;
+    const float sub =
+        (ca < 4 && cb < 4) ? (ca == cb ? match : mismatch) : 0.0f;
+    const float oa = BORDER && i == 0 ? l_open_a : open_a;
+    const float ea = BORDER && i == 0 ? l_ext_a : ext_a;
+    const float ob = BORDER && j == 0 ? l_open_b : open_b;
+    const float eb = BORDER && j == 0 ? l_ext_b : ext_b;
 
     // MATCH: priority M, then D if '>', then I if '>'
     float xm = m_in;
@@ -120,44 +103,143 @@ __global__ void wavefront_fwd_kernel(
       m_out = xm + sub;
       d_out = take_open ? md : de;
       i_out = take_iopen ? mi : ie;
-      bits = (take_i ? UT_TB_IM : (take_d ? UT_TB_DM : 0))
-             | (take_open ? UT_TB_MD : 0) | (take_iopen ? UT_TB_MI : 0);
+      bits = (take_i ? UT_TB_IM : (take_d ? UT_TB_DM : 0)) |
+             (take_open ? UT_TB_MD : 0) | (take_iopen ? UT_TB_MI : 0);
       if (i == la - 1) ML[j] = m_out;
     }
     // Drow[LB] for row i rides the lane whose j == lb (its regular cell
     // lies outside the rectangle, so the lane is otherwise idle)
-    if (j == lb && i >= 0 && i < la && u < nlane) {
+    if (j == lb && (BORDER ? (unsigned)i < (unsigned)la : i < la) &&
+        in_band) {
       const float md_lb = m_in + r_open_b;
-      const float de_lb = *dlb_s + r_ext_b;
+      const float de_lb = *dlb + r_ext_b;
       const bool take_lb = md_lb >= de_lb;
-      *dlb_s = take_lb ? md_lb : de_lb;
+      *dlb = take_lb ? md_lb : de_lb;
       bits = take_lb ? UT_TB_MD : 0;
     }
-    Mc[u] = m_out;
-    Dc[u] = d_out;
-    Ic[u] = i_out;
+    m2 = m1;
+    m1 = m_out;
+    d1 = d_out;
+    i1 = i_out;
+    const int hi = __shfl_down_sync(FULL_MASK, bits, 1);
+    if ((u & 1) == 0 && in_band) T[u >> 1] = (uint8_t)(bits | (hi << 4));
+    T += nb;
 
-    const int hi = __shfl_down_sync(0xffffffffu, bits, 1);
-    if ((u & 1) == 0 && u < nlane)
-      T[(size_t)t * nb + (u >> 1)] = (uint8_t)(bits | (hi << 4));
+    // the lane's next cell and its new letter
+    if (RHO == 0) {
+      ++j;
+      cb = (unsigned)j < (unsigned)lb ? __ldg(B + j) : 4;
+    } else {
+      ++i;
+      ca = (unsigned)i < (unsigned)la ? __ldg(A + i) : 4;
+    }
+    // the value the next step takes across this warp's boundary
+    if (RHO == 0 && lane == 0) xd[warp] = d_out;
+    if (RHO == 1 && lane == 31) xi[warp + 1] = i_out;
     __syncthreads();
   }
-  if (u == 0) dlb_out[p] = *dlb_s;
+
+  // steps t .. t_end-1; the parity of step t is (t + s) & 1
+  template <bool BORDER>
+  __device__ __forceinline__ void run(int t, int t_end, int s) {
+    if (t < t_end && ((t + s) & 1)) {
+      step<1, BORDER>();
+      ++t;
+    }
+    for (; t + 1 < t_end; t += 2) {
+      step<0, BORDER>();
+      step<1, BORDER>();
+    }
+    if (t < t_end) step<0, BORDER>();
+  }
+};
+
+__global__ void wavefront_fwd_kernel(
+    const uint8_t* __restrict__ a_let, const uint8_t* __restrict__ b_let,
+    int amax, int bmax,
+    const int* __restrict__ la_v, const int* __restrict__ lb_v,
+    const int* __restrict__ dlo_v, const int* __restrict__ bw_v,
+    const long long* __restrict__ tb_off, const int* __restrict__ order,
+    const float* __restrict__ gp, float match, float mismatch,
+    uint8_t* __restrict__ tb, float* __restrict__ mlast,
+    float* __restrict__ dlb_out) {
+  extern __shared__ float smem[];  // xd[nwarps + 1], xi[nwarps + 1], Drow[LB]
+  Lane s;
+  s.u = threadIdx.x;
+  s.lane = threadIdx.x & 31;
+  s.warp = threadIdx.x >> 5;
+  const int width = blockDim.x;
+  const int nwarps = width >> 5;
+  const int p = order[blockIdx.x];
+
+  s.la = la_v[p];
+  s.lb = lb_v[p];
+  const int dlo = dlo_v[p], bw = bw_v[p];
+  const int nlane = ut_nlane(bw);
+  s.nb = ut_nbytes(bw);
+  s.in_band = s.u < nlane;
+  s.ok0 = s.u <= (bw - 1) >> 1;
+  s.ok1 = s.u <= (bw - 2) >> 1;
+  s.open_a = gp[GP_OPEN_A];
+  s.open_b = gp[GP_OPEN_B];
+  s.ext_a = gp[GP_EXT_A];
+  s.ext_b = gp[GP_EXT_B];
+  s.l_open_a = gp[GP_L_OPEN_A];
+  s.l_open_b = gp[GP_L_OPEN_B];
+  s.l_ext_a = gp[GP_L_EXT_A];
+  s.l_ext_b = gp[GP_L_EXT_B];
+  s.r_open_b = gp[GP_R_OPEN_B];
+  s.r_ext_b = gp[GP_R_EXT_B];
+  s.match = match;
+  s.mismatch = mismatch;
+  s.A = a_let + (size_t)p * amax;
+  s.B = b_let + (size_t)p * bmax;
+  s.T = tb + tb_off[p];
+  s.ML = mlast + (size_t)p * bmax;
+  s.xd = smem;
+  s.xi = smem + nwarps + 1;
+  s.dlb = smem + 2 * (nwarps + 1);
+  for (int k = s.u; k < 2 * (nwarps + 1) + 1; k += width) smem[k] = UT_NEG;
+
+  // row la-1 holds D* = 1 + j: NEG where its band does not reach
+  const int jlo = max(dlo - 1, 0), jhi = min(dlo + bw - 2, s.lb - 1);
+  for (int j = s.u; j < bmax; j += width)
+    if (j < jlo || j > jhi) s.ML[j] = UT_NEG;
+
+  // on anti-diagonal t lane u holds j = ceil((t + sh) / 2) + u, i = t - j,
+  // sh = dlo - la, and the step's parity is (t + sh) & 1
+  const int sh = dlo - s.la;
+  s.j = ((sh + (sh & 1)) >> 1) + s.u;
+  s.i = -s.j;
+  s.ca = (unsigned)s.i < (unsigned)s.la ? __ldg(s.A + s.i) : 4;
+  s.cb = (unsigned)s.j < (unsigned)s.lb ? __ldg(s.B + s.j) : 4;
+  s.m1 = s.m2 = s.d1 = s.i1 = UT_NEG;
+  __syncthreads();
+
+  // from step t_in on, every lane of the pair has j >= 1 (t + sh >= 1)
+  // and i >= 1 (t - sh >= 2 * width)
+  const int steps = s.la + s.lb;  // last cell at la+lb-2, Drow[LB] at la-1+lb
+  const int t_in = min(steps, max(0, max(1 - sh, 2 * width + sh)));
+  s.run<true>(0, t_in, sh);
+  s.run<false>(t_in, steps, sh);
+  if (s.u == 0) dlb_out[p] = *s.dlb;
 }
 
 extern "C" int wavefront_fwd_launch(
     const void* a_let, const void* b_let, int amax, int bmax,
     const void* la, const void* lb, const void* dlo, const void* bw,
-    const void* tb_off, const void* gp, float match, float mismatch,
-    int n_pairs, int lanes, void* tb, void* mlast, void* dlb,
-    void* stream) {
+    const void* tb_off, const void* order, const void* gp, float match,
+    float mismatch, int n_pairs, int lanes, void* tb, void* mlast,
+    void* dlb, void* stream) {
   if (n_pairs <= 0) return 0;
-  const size_t smem = (6 * (size_t)(lanes + 2) + 1) * sizeof(float);
+  if (lanes < 32 || lanes > 1024 || lanes % 32)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (2 * (size_t)(lanes / 32 + 1) + 1) * sizeof(float);
   wavefront_fwd_kernel<<<n_pairs, lanes, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)a_let, (const uint8_t*)b_let, amax, bmax,
       (const int*)la, (const int*)lb, (const int*)dlo, (const int*)bw,
-      (const long long*)tb_off, (const float*)gp, match, mismatch,
-      (uint8_t*)tb, (float*)mlast, (float*)dlb);
+      (const long long*)tb_off, (const int*)order, (const float*)gp, match,
+      mismatch, (uint8_t*)tb, (float*)mlast, (float*)dlb);
   return (int)cudaGetLastError();
 }
 

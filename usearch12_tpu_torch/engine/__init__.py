@@ -1,5 +1,12 @@
-"""Window-batched search engine with the hole DP on the card."""
+"""Window-batched search engine.
 
-from .batch import TorchBatchEngine
+The serial reference loop (src/search.cpp:51-87) becomes: rank a window
+of queries at once, HSP-chain the next candidate of every live query,
+align the DP holes as one batch on the card (ops/wavefront_nw.py), then
+replay accept/terminate per query — bit-identical outputs with the DP
+batched into device-sized dispatches.
+"""
 
-__all__ = ["TorchBatchEngine"]
+from .batch import BatchEngine, engine_eligible
+
+__all__ = ["BatchEngine", "engine_eligible"]

@@ -28,10 +28,9 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from usearch12_tpu.align.oracle import band_diag_range
-
 from .. import _build
-from .wavefront_nw import gap_params_from_jax, match_mismatch, pack_letters
+from ..align.oracle import band_diag_range
+from .wavefront_nw import gap_params, match_mismatch, pack_letters
 from .wavefront_trace import NEG, TB_DM, TB_IM, TB_MD, TB_MI, check_tensor
 
 BAND_LANES = 126          # widest band, as in the JAX package
@@ -413,7 +412,7 @@ class BandedNWDevice:
     def __init__(self, ap, device):
         self.ap = ap
         self.device = torch.device(device)
-        self.gp = gap_params_from_jax(ap).to(self.device)
+        self.gp = gap_params(ap).to(self.device)
         self.match, self.mismatch = match_mismatch(ap)
 
     def _forward(self, batch: PairBatch, with_traceback: bool):

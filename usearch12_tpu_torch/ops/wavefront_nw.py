@@ -17,11 +17,10 @@ from typing import List, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
-from usearch12_tpu.align.oracle import band_diag_range
-from usearch12_tpu.alpha import CHAR_TO_LETTER_NUCLEO
-from usearch12_tpu.scoring import AlnParams, nuc_mx
-
 from .. import _build
+from ..align.oracle import band_diag_range
+from ..alpha import CHAR_TO_LETTER_NUCLEO
+from ..scoring import AlnParams, nuc_mx
 from .wavefront_trace import (NEG, TB_DM, TB_IM, TB_MD, TB_MI,
                               check_geometry, check_tensor, decode_ops,
                               tb_nbytes, wavefront_trace)
@@ -49,7 +48,7 @@ def nucleo_params(open_: float, ext: float, term_open: float,
     return ap
 
 
-def gap_params_from_jax(ap) -> torch.Tensor:
+def gap_params(ap) -> torch.Tensor:
     """(16,) float32 gap penalties of an AlnParams, in the layout of the
     JAX package's WavefrontNWDevice.gp."""
     gp = torch.zeros(16, dtype=torch.float32)
@@ -98,14 +97,17 @@ def wavefront_fwd(a_let, b_let, la, lb, dlo, bw, tb_off, tb_bytes: int,
     mlast = torch.empty((P, bmax), dtype=torch.float32, device=dev)
     dlb = torch.empty(P, dtype=torch.float32, device=dev)
     lanes = ((bw_max + 1) // 2 + 31) // 32 * 32
+    # pairs longest first, so that no long pair starts last
+    order = torch.argsort(la + lb, descending=True, stable=True).to(
+        torch.int32)
     lib = _build.load_library()
     with torch.cuda.device(dev):
         err = lib.wavefront_fwd_launch(
             a_let.data_ptr(), b_let.data_ptr(), amax, bmax,
             la.data_ptr(), lb.data_ptr(), dlo.data_ptr(), bw.data_ptr(),
-            tb_off.data_ptr(), gp.data_ptr(), match, mismatch, P, lanes,
-            tb.data_ptr(), mlast.data_ptr(), dlb.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            tb_off.data_ptr(), order.data_ptr(), gp.data_ptr(), match,
+            mismatch, P, lanes, tb.data_ptr(), mlast.data_ptr(),
+            dlb.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch("wavefront_fwd", err)
     wavefront_fwd.launches += 1
     return tb, mlast, dlb
@@ -268,7 +270,7 @@ class TorchWaveAligner:
 
     def __init__(self, ap, device: torch.device, tb_budget: int = TB_BUDGET):
         self.device = device
-        self.gp = gap_params_from_jax(ap).to(device)
+        self.gp = gap_params(ap).to(device)
         self.match, self.mismatch = match_mismatch(ap)
         self.tb_budget = tb_budget
 
@@ -301,10 +303,10 @@ class TorchWaveAligner:
 
 def native_nw_band(pairs: Sequence, band_radius: int, ap
                    ) -> Tuple[np.ndarray, List[str]]:
-    """The host C kernel (usearch12_tpu native nw_band) on the same pairs
-    and band: a judge for the kernels, not a path of the port."""
+    """The host C kernel (native nw_band) on the same pairs and band: a
+    judge for the kernels, not a path of the device."""
     import ctypes
-    from usearch12_tpu.native import GapParams, get_lib
+    from ..native import GapParams, get_lib
     lib = get_lib()
     if lib is None:
         raise RuntimeError("native host kernels unavailable (no gcc)")

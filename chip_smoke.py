@@ -2,17 +2,22 @@
 """Smoke run of usearch12_tpu_torch on one CUDA card.
 
     python3 chip_smoke.py          # from the root of a checkout
-    python3 chip_smoke.py --against DIR   # also time DIR's wavefront_fwd
+    python3 chip_smoke.py --against DIR   # also time DIR's kernels
 
 Phases, each printing a line, any failure exits non-zero:
   1. device: the card's name, and its name and power limit from nvidia-smi;
   2. build: the CUDA kernels of usearch12_tpu_torch/csrc with nvcc;
-  3. kernels: the hole DP kernels (wavefront_fwd, wavefront_trace)
+  3. kernels: the hole DP kernels (wavefront_fwd, wavefront_trace, the
+     latter with both its kernels, one warp a pair and one thread a pair)
      against their plain PyTorch versions on the card, bit for bit, at
      (a) 65,536 pairs of 250 nt (band radius 16), (b) 512 pairs of 3 kb
-     (band radius 120, non-dyadic gap penalties) and (c) 64 pairs of
-     1.5 kb (radius 300, band 601), each with a 256-pair subsample
-     against the host C kernel nw_band;
+     (band radius 120, non-dyadic gap penalties), (c) 64 pairs of 1.5 kb
+     (radius 300, band 601) and (d) 16 pairs of about 4 kb at radius 1015
+     with la - lb = 16 in turns (band 2047, the widest the kernels take),
+     each with a subsample of up to 256 pairs against the host C kernel
+     nw_band; then (e) and (f), launches of 600-nt pairs (radius 60) at
+     half and twice the load where the wrapper changes from the warp
+     kernel to the thread kernel (WARP_MAX_LOAD), each kernel timed;
   4. oracle: the row-sweep kernels of the device oracle BandedNWDevice
      (banded_nw_fwd, banded_nw_chase) bit for bit against their plain
      versions at the 65,536 pairs of 250 nt (radius 16) and at 2,048
@@ -27,12 +32,17 @@ Phases, each printing a line, any failure exits non-zero:
      the same command line with -no_engine_device (the host C path, a
      process of its own), with 5,532,965,001 device cells; then the
      run's launches replayed (their inputs as recorded) to time
-     wavefront_fwd and wavefront_trace on them;
-  6. sintax kernels: sintax_pick_hist and sintax_boot_select bit for bit
-     against their plain versions on one full chunk of the SINTAX workload
-     (128 jobs x 100 boots x 256 word slots against the 60,000-target
-     incidence), at m = 32, at m = 200 (> 127) and at m = 0 (every target
-     ties), with the gather and the product timed beside them;
+     wavefront_fwd and wavefront_trace on them, each beside its bound,
+     and to hold both wavefront_trace kernels bit-equal to the plain
+     version on every launch;
+  6. sintax kernels: sintax_pick_hist and sintax_boot_count_select (the
+     boot counts and the winner in one fused kernel) bit for bit against
+     their plain versions on one full chunk of the SINTAX workload (128
+     jobs x 100 boots x 256 word slots against the 60,000-target
+     incidence), at m = 32, at m = 200 (> 127, float16) and at m = 0
+     (every target ties), with the route the fused kernel replaced (the
+     gather, mask and cast of the incidence rows, and the bmm) timed
+     beside it;
   7. sintax: the JAX package's SINTAX device workload (bench.py's
      _gen_sintax_big, seed 17, not cut: 60,000 targets of 248 nt, 1,500
      queries, -strand both -randseed 1) through the port's command line
@@ -46,17 +56,24 @@ Phases, each printing a line, any failure exits non-zero:
      card (dispatch cost, copy rates, the slice's DP rate, the first
      dispatch's excess in a fresh process).
 Every kernel's time comes with its bound: the larger of the bytes it
-must move over 3.35 TB/s and its float32 operations over 67 TFLOP/s.
+must move over 3.35 TB/s and its operations over the card's peak for
+their type (float32 67 TFLOP/s; the tensor cores' int8 1,979 TOP/s and
+float16 989 TFLOP/s).
 
 With --against DIR, DIR being another checkout of the repository (for
-example a parent commit unpacked with git archive), its
-csrc/wavefront_fwd.cu is built with this tree's nvcc flags and its
-kernel timed against this tree's at (a), (b) and on the slice's
-launches, bit-equal, in turns other, this, this, other; this tree's
-kernel is also timed with the pairs in launch order instead of longest
-first.  DIR's entry point wavefront_fwd_launch must take this tree's
-arguments, or those less `order` where DIR's _build.py declares no
-`order`.
+example a parent commit unpacked with git archive), its csrc/
+wavefront_fwd.cu, wavefront_trace.cu and sintax_boot.cu are built with
+this tree's nvcc flags, each into a library of its own.  Its
+wavefront_fwd is timed against this tree's at (a), (b), (c), (d) and on
+the slice's launches, bit-equal, in turns other, this, this, other
+(this tree's kernel also with the pairs in launch order instead of
+longest first); its wavefront_trace the same way; and, where it has the
+sintax_boot_select kernel, its SINTAX route (gather, bmm, that kernel)
+against this tree's fused kernel on phase 6's chunks.  DIR's
+wavefront_fwd_launch must take this tree's arguments (with the pair
+order), and its wavefront_trace_launch those of the interface version its
+wavefront_trace_interface() returns, or those of the one-thread-a-pair
+entry point where it exports none.
 Each phase prints its seconds.  The line before the last is the kernel
 summary as JSON, the last line {"ok": true, "device": {...}}.
 """
@@ -183,6 +200,23 @@ def balanced_indel_pairs(rng, n, length, max_indel=40, sub_rate=0.1):
     return pairs
 
 
+def widest_band_pairs(rng, n, length):
+    """n (a, b) pairs of about `length`: b is a with 10% substitutions,
+    16 letters longer or shorter in turns, so that radius 1015 gives the
+    widest band the kernels take (2047 = BW_MAX) with la != lb."""
+    import numpy as np
+    conv = np.frombuffer(b"ACGT", np.uint8)
+    pairs = []
+    for k in range(n):
+        la = length + int(rng.integers(-200, 201))
+        a = rng.integers(0, 4, la)
+        b = np.resize(a, la + (16 if k % 2 else -16))
+        flip = rng.random(len(b)) < 0.1
+        b[flip] = rng.integers(0, 4, int(flip.sum()))
+        pairs.append((conv[a], conv[b]))
+    return pairs
+
+
 def cuda_ms(fn, reps, warm=True):
     """Mean device time of fn() over reps runs, after one warm-up unless
     warm is False."""
@@ -199,16 +233,19 @@ def cuda_ms(fn, reps, warm=True):
     return start.elapsed_time(end) / reps, out
 
 
-# published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s
-# and float32 operations/s outside the tensor cores
+# published peaks of one H100 SXM (NVIDIA's H100 data sheet, dense rates
+# without sparsity): HBM bytes/s, float32 operations/s outside the tensor
+# cores, and the tensor cores' int8 and float16 operations/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+PEAK_INT8 = 1979e12
+PEAK_F16 = 989e12
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, peak_ops=PEAK_F32):
     """(bound_ms, bound_by): the least time for `nbytes` moved and `ops`
-    float32 operations at the published peaks."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    operations at the published peaks (float32 unless peak_ops says)."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / peak_ops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -276,7 +313,7 @@ def check_kernels(tag, pairs, radius, ap, dev, reps, other=None):
             fail(f"{tag}: wavefront_fwd {name} differs from its plain "
                  "version")
     if other is not None:
-        compare_fwd(tag, [tuple(w) + (gp, match, mismatch)], other)
+        compare_fwd(tag, [tuple(w) + (gp, match, mismatch)], other["fwd"])
     fwd_bound_ms, fwd_bound_by = fwd_bound(w, fwd)
     tb, mlast, dlb = fwd
     targs = (tb, w.tb_off, mlast, dlb, w.la, w.lb, w.dlo, w.bw, gp)
@@ -284,10 +321,21 @@ def check_kernels(tag, pairs, radius, ap, dev, reps, other=None):
     stride = tr[1].shape[1]
     tr_plain_ms, tr_plain = cuda_ms(
         lambda: wtr.wavefront_trace_plain(*targs, stride), 1)
+    # both kernels, whichever the wrapper takes at this shape
+    variant_ms = {}
+    for name, warp in (("warp", True), ("thread", False)):
+        variant_ms[name], out = cuda_ms(
+            lambda: wtr.wavefront_trace(*targs, warp=warp), reps)
+        for field, x, y in zip(("scores", "ops", "lens"), out, tr_plain):
+            if not bit_equal(x, y):
+                fail(f"{tag}: wavefront_trace's {name} kernel {field} "
+                     "differs from the plain version")
     for name, x, y in zip(("scores", "ops", "lens"), tr, tr_plain):
         if not bit_equal(x, y):
             fail(f"{tag}: wavefront_trace {name} differs from its plain "
                  "version")
+    if other is not None:
+        compare_trace(tag, [targs], other["trace"])
     scores = tr[0].cpu().numpy()
     paths = wtr.decode_ops(tr[1].cpu().numpy(), tr[2].cpu().numpy())
     if not np.isfinite(scores).all():
@@ -302,14 +350,20 @@ def check_kernels(tag, pairs, radius, ap, dev, reps, other=None):
     err = max(float((fwd[1] - fwd_plain[1]).abs().max()),
               float((fwd[2] - fwd_plain[2]).abs().max()))
     tr_bound_ms, tr_bound_by = trace_bound(targs, tr)
+    steps = geo[0].astype(np.int64) + geo[1]
+    load = int(steps.sum()) / int(steps.max())
+    pick = ("warp" if wtr.takes_warp_kernel(int(steps.sum()),
+                                            int(steps.max())) else "thread")
     print(f"kernels {tag}: {len(pairs)} pairs, {cells} cells, widest band "
           f"{int(geo[3].max())}; wavefront_fwd {fwd_ms:.3f} ms "
           f"({cells / fwd_ms / 1e6:.2f} Gcells/s, bound {fwd_bound_ms:.4f} "
           f"ms by {fwd_bound_by}), plain {fwd_plain_ms:.1f} ms; "
           f"wavefront_trace "
           f"{tr_ms:.3f} ms ({cells / tr_ms / 1e6:.2f} Gcells/s, bound "
-          f"{tr_bound_ms:.4f} ms by {tr_bound_by}), plain "
-          f"{tr_plain_ms:.1f} ms; "
+          f"{tr_bound_ms:.4f} ms by {tr_bound_by}; load {load:.0f}, the "
+          f"wrapper takes the {pick} kernel; warp kernel "
+          f"{variant_ms['warp']:.3f} ms, thread kernel "
+          f"{variant_ms['thread']:.3f} ms), plain {tr_plain_ms:.1f} ms; "
           f"bit-equal to plain, {len(sub)} pairs equal to nw_band; clocks "
           f"{clocks()}", flush=True)
     return {"fwd_ms": fwd_ms, "fwd_plain_ms": fwd_plain_ms,
@@ -384,76 +438,237 @@ def check_banded(tag, pairs, radius, ap, dev, reps):
             "chase_err": float((ch[0] - ch_plain[0]).abs().max())}
 
 
-def time_slice_launches(seen):
+def time_slice_launches(seen, other=None):
     """The slice's launches (inputs as recorded on the main path)
     replayed: wavefront_fwd and wavefront_trace timed on them (one run
-    each after a warm-up); returns the times, the forward bound and the
-    launches' sizes."""
+    each after a warm-up), each with its bound summed over the launches;
+    on every launch both wavefront_trace kernels (the wrapper's choice and
+    the other) held bit-equal to wavefront_trace_plain; and with `other`
+    (load_other's) the trace against that checkout's.  Returns the
+    times, the bounds and the launches' sizes."""
+    import torch
     from usearch12_tpu_torch.ops import wavefront_nw as wnw
     from usearch12_tpu_torch.ops import wavefront_trace as wtr
     fwd_ms, outs = cuda_ms(lambda: [wnw.wavefront_fwd(*a) for a in seen], 1)
     bound_ms = sum(fwd_bound(a[:7], o)[0] for a, o in zip(seen, outs))
-    trace_ms, _ = cuda_ms(lambda: [wtr.wavefront_trace(
-        o[0], a[6], o[1], o[2], *a[2:6], a[8]) for a, o in zip(seen, outs)
-    ][-1], 1)
-    del outs
+    targs = [(o[0], a[6], o[1], o[2], *a[2:6], a[8])
+             for a, o in zip(seen, outs)]
+    trace_ms, _ = cuda_ms(lambda: [wtr.wavefront_trace(*t) for t in targs],
+                          1)
+    t0 = time.perf_counter()
+    trace_bound_ms, picks = 0.0, [None] * len(targs)
+    for ks, merged in merged_by_gap_penalties(targs):
+        plain = wtr.wavefront_trace_plain(*merged, wtr.ops_stride(
+            int((merged[4] + merged[5]).max())))
+        row = 0
+        for k in ks:
+            t = targs[k]
+            steps = (t[4] + t[5]).to(torch.int64)
+            warp = wtr.takes_warp_kernel(int(steps.sum()), int(steps.max()))
+            picks[k] = "warp" if warp else "thread"
+            got = wtr.wavefront_trace(*t)
+            rows = slice(row, row + t[4].numel())
+            row = rows.stop
+            stride = got[1].shape[1]
+            if plain[1][rows, stride:].any():
+                fail(f"slice launch {k}: plain paths longer than the launch")
+            want = (plain[0][rows], plain[1][rows, :stride].contiguous(),
+                    plain[2][rows])
+            for name, out in (("the wrapper's", got), ("the other",
+                              wtr.wavefront_trace(*t, warp=not warp))):
+                for field, x, y in zip(("scores", "ops", "lens"), out, want):
+                    if not bit_equal(x, y):
+                        fail(f"slice launch {k}: {name} wavefront_trace "
+                             f"kernel {field} differs from the plain "
+                             "version")
+            trace_bound_ms += trace_bound(t, got)[0]
+        del plain
+    t_check = time.perf_counter() - t0
+    if other is not None:
+        compare_trace("slice launches", targs, other["trace"])
+    del outs, targs
     pairs = [int(a[2].numel()) for a in seen]
     print(f"slice launches replayed: {len(seen)} launches of {pairs} "
           f"pairs; wavefront_fwd {fwd_ms:.3f} ms, bound {bound_ms:.4f} ms; "
-          f"wavefront_trace {trace_ms:.3f} ms; clocks {clocks()}",
-          flush=True)
+          f"wavefront_trace {trace_ms:.3f} ms, bound {trace_bound_ms:.4f} "
+          f"ms, the wrapper's kernels {picks}; both trace kernels bit-equal "
+          f"to the plain version on every launch (checked in "
+          f"{t_check:.1f} s); clocks {clocks()}", flush=True)
     return {"fwd_ms": fwd_ms, "bound_ms": bound_ms, "pairs": pairs,
-            "trace_ms": trace_ms}
+            "trace_ms": trace_ms, "trace_bound_ms": trace_bound_ms}
 
 
-def load_other_fwd(src_dir):
-    """The wavefront_fwd_launch entry point of another checkout's
-    csrc/wavefront_fwd.cu, built with this tree's nvcc flags, and whether
-    it takes `order` (as that checkout's _build.py declares); its other
-    arguments are this tree's."""
+def merged_by_gap_penalties(targs):
+    """The wrapper's arguments of several launches merged into one launch
+    for each vector of gap penalties (tracebacks concatenated with their
+    offsets shifted, mlast padded to the widest), so that the plain
+    version, whose cost is its longest pair's steps, runs once a vector.
+    Returns [(indices of the launches in order, merged arguments)]."""
+    import torch
+    groups = {}
+    for k, t in enumerate(targs):
+        groups.setdefault(tuple(t[8].tolist()), []).append(k)
+    out = []
+    for ks in groups.values():
+        ts = [targs[k] for k in ks]
+        base, offs = 0, []
+        for t in ts:
+            offs.append(t[1] + base)
+            base += t[0].numel()
+        width = max(t[2].shape[1] for t in ts)
+        mlast = torch.cat([torch.nn.functional.pad(
+            t[2], (0, width - t[2].shape[1])) for t in ts])
+        out.append((ks, (torch.cat([t[0] for t in ts]), torch.cat(offs),
+                         mlast, *(torch.cat([t[i] for t in ts])
+                                  for i in range(3, 8)), ts[0][8])))
+    return out
+
+
+def load_other(src_dir):
+    """Another checkout's csrc/wavefront_fwd.cu, wavefront_trace.cu and
+    sintax_boot.cu, each built with this tree's nvcc flags into a library
+    of its own (one nvcc per source, started together).  Returns
+    {"fwd": library, "trace": (library, whether its wavefront_trace_launch
+    takes this tree's arguments: it does if the library exports
+    wavefront_trace_interface() == 2, and takes the one-thread-a-pair
+    entry point's if it exports no version), "sintax": library or None}.
+    Its wavefront_fwd_launch must take this tree's arguments (with the
+    pair order)."""
     import ctypes
     from usearch12_tpu_torch import _build
-    src = os.path.join(os.path.abspath(src_dir), "usearch12_tpu_torch",
-                       "csrc", "wavefront_fwd.cu")
+    csrc = os.path.join(os.path.abspath(src_dir), "usearch12_tpu_torch",
+                        "csrc")
     out_dir = _build.BUILD_DIR / "against"
     out_dir.mkdir(parents=True, exist_ok=True)
-    so = out_dir / "libwavefront_fwd_other.so"
+    names = ("wavefront_fwd", "wavefront_trace", "sintax_boot")
     t0 = time.perf_counter()
-    r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
-                        str(so), src], capture_output=True, text=True,
-                       timeout=600)
-    if r.returncode != 0:
-        fail(f"nvcc of {src} failed: {r.stdout[-2000:]}{r.stderr[-2000:]}")
-    with open(os.path.join(src_dir, "usearch12_tpu_torch", "_build.py")) as f:
-        takes_order = "# tb_off, order" in f.read()
-    lib = ctypes.CDLL(str(so))
-    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.wavefront_fwd_launch.restype = i32
-    lib.wavefront_fwd_launch.argtypes = [vp, vp, i32, i32, vp, vp, vp, vp,
-                                         vp] + [vp] * takes_order + [
-        vp, f32, f32, i32, i32, vp, vp, vp, vp]
-    print(f"against: {src} built in {time.perf_counter() - t0:.1f} s, "
-          f"{'with' if takes_order else 'without'} a pair order", flush=True)
-    return lib, takes_order
+    procs = {n: subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+         str(out_dir / f"lib{n}_other.so"), os.path.join(csrc, n + ".cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for n in names}
+    for n, proc in procs.items():
+        log = proc.communicate(timeout=600)[0]
+        if proc.returncode != 0:
+            fail(f"nvcc of {csrc}/{n}.cu failed: {log[-2000:]}")
+    libs = {n: ctypes.CDLL(str(out_dir / f"lib{n}_other.so")) for n in names}
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    this = _build.load_library()
+    fwd = libs["wavefront_fwd"].wavefront_fwd_launch
+    fwd.restype = i32
+    fwd.argtypes = this.wavefront_fwd_launch.argtypes
+    trace = libs["wavefront_trace"].wavefront_trace_launch
+    trace.restype = i32
+    version = 1
+    if hasattr(libs["wavefront_trace"], "wavefront_trace_interface"):
+        libs["wavefront_trace"].wavefront_trace_interface.restype = i32
+        version = libs["wavefront_trace"].wavefront_trace_interface()
+    if version not in (1, 2):
+        fail(f"{csrc}/wavefront_trace.cu: unknown interface {version}")
+    trace_new = version == 2
+    if trace_new:
+        trace.argtypes = this.wavefront_trace_launch.argtypes
+    else:
+        trace.argtypes = [vp, vp, vp, i32, vp, vp, vp, vp, vp, vp, i32, vp,
+                          vp, i32, vp, vp]
+    sx = libs["sintax_boot"]
+    if hasattr(sx, "sintax_boot_select_launch"):
+        sx.sintax_boot_select_launch.restype = i32
+        sx.sintax_boot_select_launch.argtypes = [vp, i32, vp, i32, i32, vp,
+                                                 vp, vp]
+    else:
+        sx = None
+    print(f"against: {csrc} built in {time.perf_counter() - t0:.1f} s; "
+          f"wavefront_trace interface {version}, sintax_boot_select "
+          f"{'present' if sx else 'absent'}", flush=True)
+    return {"fwd": libs["wavefront_fwd"],
+            "trace": (libs["wavefront_trace"], trace_new), "sintax": sx}
 
 
-def raw_fwd(lib, a, lanes, order=None):
+def raw_trace(lib, new, args, stride, plan):
+    """One launch of a wavefront_trace_launch entry point on `args` (the
+    wrapper's), outputs allocated as the wrapper allocates them; `plan`
+    is (order, nb_max, warp) for an entry point with this tree's
+    arguments."""
+    import torch
+    tb, tb_off, mlast, dlb, la, lb, dlo, bw, gp = args
+    P, dev = la.numel(), tb.device
+    scores = torch.empty(P, dtype=torch.float32, device=dev)
+    ops = torch.zeros((P, stride), dtype=torch.uint8, device=dev)
+    lens = torch.empty(P, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    geo = [x.data_ptr() for x in (dlb, la, lb, dlo, bw, gp)]
+    if new:
+        order, nb_max, warp = plan
+        err = lib.wavefront_trace_launch(
+            tb.data_ptr(), tb.numel(), tb_off.data_ptr(), order.data_ptr(),
+            mlast.data_ptr(), mlast.shape[1], *geo, P, nb_max, int(warp),
+            scores.data_ptr(), ops.data_ptr(), stride, lens.data_ptr(),
+            stream)
+    else:
+        err = lib.wavefront_trace_launch(
+            tb.data_ptr(), tb_off.data_ptr(), mlast.data_ptr(),
+            mlast.shape[1], *geo, P, scores.data_ptr(), ops.data_ptr(),
+            stride, lens.data_ptr(), stream)
+    if err != 0:
+        fail(f"wavefront_trace_launch returned CUDA error {err}")
+    return scores, ops, lens
+
+
+def compare_trace(tag, launches, other):
+    """wavefront_trace of another checkout (`other`, load_other's entry)
+    and of this tree (the kernel its wrapper picks) on `launches` (the
+    wrapper's arguments), entry points called directly with their inputs
+    made beforehand, bit-equal, each timed over all launches in turns
+    other, this, this, other; returns {name: [ms, ms]}."""
+    import torch
+    from usearch12_tpu_torch import _build
+    from usearch12_tpu_torch.ops import wavefront_trace as wtr
+    lib = _build.load_library()
+    plans, strides = [], []
+    for a in launches:
+        la, lb, bw = a[4], a[5], a[7]
+        steps = (la + lb).to(torch.int64)
+        longest = int(steps.max())
+        strides.append(wtr.ops_stride(longest))
+        order = torch.argsort(la + lb, descending=True, stable=True).to(
+            torch.int32)
+        plans.append((order, ((int(bw.max()) + 1) // 2 + 1) // 2,
+                      wtr.takes_warp_kernel(int(steps.sum()), longest)))
+    runs = {"other": lambda: [raw_trace(*other, a, s, p) for a, s, p in
+                              zip(launches, strides, plans)][-1],
+            "this": lambda: [raw_trace(lib, True, a, s, p) for a, s, p in
+                             zip(launches, strides, plans)][-1]}
+    for a, s, p in zip(launches, strides, plans):
+        want = raw_trace(*other, a, s, p)
+        got = raw_trace(lib, True, a, s, p)
+        for name, x, y in zip(("scores", "ops", "lens"), got, want):
+            if not bit_equal(x, y):
+                fail(f"against {tag}: wavefront_trace {name} differs from "
+                     "the other checkout's")
+    times = {name: [] for name in runs}
+    for name in ("other", "this", "this", "other"):
+        times[name].append(cuda_ms(runs[name], 1)[0])
+    print(f"against {tag}: wavefront_trace over {len(launches)} launches, "
+          f"ms {json.dumps(times)}; bit-equal; clocks {clocks()}", flush=True)
+    return times
+
+
+def raw_fwd(lib, a, lanes, order):
     """One launch of a wavefront_fwd_launch entry point on `a` (the
-    wrapper's arguments: WaveLaunch fields, gp, match, mismatch), with
-    the pair order `order` where the entry point takes one."""
+    wrapper's arguments: WaveLaunch fields, gp, match, mismatch), pairs in
+    the order `order`."""
     import torch
     a_let, b_let, la, lb, dlo, bw, tb_off, tb_bytes, gp, match, mismatch = a
     (P, amax), bmax = a_let.shape, b_let.shape[1]
     tb = torch.empty(tb_bytes, dtype=torch.uint8, device=a_let.device)
     mlast = torch.empty((P, bmax), dtype=torch.float32, device=a_let.device)
     dlb = torch.empty(P, dtype=torch.float32, device=a_let.device)
-    head = [a_let.data_ptr(), b_let.data_ptr(), amax, bmax, la.data_ptr(),
-            lb.data_ptr(), dlo.data_ptr(), bw.data_ptr(), tb_off.data_ptr()]
-    if order is not None:
-        head.append(order.data_ptr())
     err = lib.wavefront_fwd_launch(
-        *head, gp.data_ptr(), match, mismatch, P, lanes, tb.data_ptr(),
-        mlast.data_ptr(), dlb.data_ptr(),
+        a_let.data_ptr(), b_let.data_ptr(), amax, bmax, la.data_ptr(),
+        lb.data_ptr(), dlo.data_ptr(), bw.data_ptr(), tb_off.data_ptr(),
+        order.data_ptr(), gp.data_ptr(), match, mismatch, P, lanes,
+        tb.data_ptr(), mlast.data_ptr(), dlb.data_ptr(),
         torch.cuda.current_stream().cuda_stream)
     if err != 0:
         fail(f"wavefront_fwd_launch returned CUDA error {err}")
@@ -461,34 +676,30 @@ def raw_fwd(lib, a, lanes, order=None):
 
 
 def compare_fwd(tag, launches, other):
-    """wavefront_fwd of another checkout (`other`, load_other_fwd's
-    library and whether it takes a pair order; it gets the one this
-    tree's wrapper makes) and of
-    this tree (pairs longest first, as the wrapper launches them, and in
-    launch order) on `launches`, bit-equal, each timed over all launches
-    in turns other, this, this in launch order (twice), this, other;
-    returns {name: [ms, ms]}."""
+    """wavefront_fwd of another checkout (`other`, load_other's library;
+    it gets the pair order this tree's wrapper makes) and of this tree
+    (pairs longest first, as the wrapper launches them, and in launch
+    order) on `launches`, bit-equal, each timed over all launches in turns
+    other, this, this in launch order (twice), this, other; returns
+    {name: [ms, ms]}."""
     import torch
     from usearch12_tpu_torch import _build
     lib = _build.load_library()
-    other, other_order = other
     lanes = [((int(a[5].max()) + 1) // 2 + 31) // 32 * 32 for a in launches]
     longest = [torch.argsort(a[2] + a[3], descending=True, stable=True).to(
         torch.int32) for a in launches]
     given = [torch.arange(a[2].numel(), dtype=torch.int32,
                           device=a[2].device) for a in launches]
     runs = {
-        "other": lambda: [
-            raw_fwd(other, a, n, o if other_order else None)
-            for a, n, o in zip(launches, lanes, longest)][-1],
+        "other": lambda: [raw_fwd(other, a, n, o)
+                          for a, n, o in zip(launches, lanes, longest)][-1],
         "this": lambda: [raw_fwd(lib, a, n, o)
                          for a, n, o in zip(launches, lanes, longest)][-1],
         "this, launch order": lambda: [
             raw_fwd(lib, a, n, o)
             for a, n, o in zip(launches, lanes, given)][-1]}
     for k, a in enumerate(launches):
-        want = raw_fwd(other, a, lanes[k],
-                       longest[k] if other_order else None)
+        want = raw_fwd(other, a, lanes[k], longest[k])
         for got in (raw_fwd(lib, a, lanes[k], longest[k]),
                     raw_fwd(lib, a, lanes[k], given[k])):
             for name, x, y in zip(("tb", "mlast", "dlb"), got, want):
@@ -612,9 +823,43 @@ def sintax_chunks(dbf, qf, d):
     return engine, chunks
 
 
-def check_sintax_kernels(engine, chunks, dev):
-    """The SINTAX kernels against their plain versions on full chunks;
-    returns times and errors of the m = 32 chunk and the worst error."""
+def sintax_route(engine, P, words_d, nuw_d, rr_d, dtype, select):
+    """The route the fused kernel replaced: the gather, mask and cast of
+    the incidence rows into `dtype`, the library bmm into U, and
+    select(U, rr)."""
+    from usearch12_tpu_torch.ops import sintax_boot as sb
+    mq = sb.gather_rows(engine.w_mat, words_d, nuw_d, dtype)
+    U = sb.boot_product(P, mq)
+    del mq
+    return select(U, rr_d)
+
+
+def other_select(lib):
+    """select(U, rr) through another checkout's sintax_boot_select_launch."""
+    import torch
+
+    def select(U, rr):
+        winner = torch.empty(rr.shape, dtype=torch.int32, device=U.device)
+        top = torch.empty(rr.shape, dtype=torch.int32, device=U.device)
+        err = lib.sintax_boot_select_launch(
+            U.data_ptr(), 1 if U.dtype == torch.float16 else 0,
+            rr.data_ptr(), rr.numel(), U.shape[2], winner.data_ptr(),
+            top.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            fail(f"sintax_boot_select_launch returned CUDA error {err}")
+        return winner, top
+    return select
+
+
+def check_sintax_kernels(engine, chunks, dev, other_sx=None):
+    """sintax_pick_hist and the fused count-and-select kernel
+    (sintax_boot_count_select) bit for bit against their plain versions
+    on full chunks, the route the fused kernel replaced (gather, mask and
+    cast; bmm) timed beside it, and with `other_sx` (another checkout's
+    library with its sintax_boot_select kernel) that checkout's whole
+    route timed against the fused kernel in turns other, this, this,
+    other.  Returns times, bounds and errors of the m = 32 chunk and the
+    worst errors."""
     import torch
     from usearch12_tpu_torch.ops import sintax_boot as sb
     out = {"hist_err": 0.0, "select_err": 0.0}
@@ -622,7 +867,7 @@ def check_sintax_kernels(engine, chunks, dev):
         words_d, nuw_d, m_d, stream_d, rr_d = (
             torch.from_numpy(x.view("int32")).to(dev)
             for x in (words, nuw, m, stream, rr))
-        dtype = sb.product_dtype(dev, m_val * max(engine.inc_absmax, 1))
+        dtype = sb.product_dtype(dev, m_val, engine.inc_absmax)
         args = (nuw_d, m_d, stream_d, engine.B, words.shape[1], dtype)
         hist_ms, P = cuda_ms(lambda: sb.pick_hist(*args), 5)
         # 2 operations per pick (the fold and the add), B x m picks a job
@@ -632,19 +877,55 @@ def check_sintax_kernels(engine, chunks, dev):
         if not bit_equal(P, P_plain):
             fail(f"sintax m={m_val}: sintax_pick_hist differs from its "
                  "plain version")
-        gather_ms, mq = cuda_ms(lambda: sb.gather_rows(
-            engine.w_mat, words_d, nuw_d, dtype), 3)
-        prod_ms, U = cuda_ms(lambda: sb.boot_product(P, mq), 3)
-        del mq
-        sel_ms, sel = cuda_ms(lambda: sb.boot_select(U, rr_d), 5)
-        # 2 operations per element of U: the max and the tie count
-        sel_b = bound(nbytes_of(U, rr_d, *sel), 2 * U.numel())
+        cargs = (P, words_d, nuw_d, engine.w_mat, rr_d)
+        sel_ms, sel = cuda_ms(lambda: sb.boot_count_select(*cargs), 5)
+        # the live incidence rows (nuw x T bytes a job), P, the words, rr
+        # and the outputs; 2 operations per term of U, at the tensor
+        # cores' rate for P's type
+        T = engine.w_mat.shape[1]
+        live = int(nuw.astype("int64").sum())
+        sel_b = bound(live * T + nbytes_of(P, words_d, nuw_d, rr_d, *sel),
+                      2 * engine.B * live * T,
+                      PEAK_INT8 if dtype == torch.int8 else PEAK_F16)
+        # the plain version and the old route: float16 where the whole
+        # sum is exact in it, as that route took it
+        rdt = (torch.float16 if m_val * max(engine.inc_absmax, 1)
+               <= sb.FP16_EXACT else torch.float32)
         sel_plain_ms, sel_plain = cuda_ms(
-            lambda: sb.boot_select_plain(U, rr_d), 1)
+            lambda: sb.boot_count_select_plain(*cargs, dtype=rdt), 1,
+            warm=False)
         for name, x, y in zip(("winner", "top"), sel, sel_plain):
             if not bit_equal(x, y):
-                fail(f"sintax m={m_val}: sintax_boot_select {name} differs "
-                     "from its plain version")
+                fail(f"sintax m={m_val}: sintax_boot_count_select {name} "
+                     "differs from its plain version")
+        P_r = P.to(rdt)
+        gather_ms, mq = cuda_ms(lambda: sb.gather_rows(
+            engine.w_mat, words_d, nuw_d, rdt), 3)
+        prod_ms, U = cuda_ms(lambda: sb.boot_product(P_r, mq), 3)
+        del mq
+        for name, x, y in zip(("winner", "top"), sel,
+                              sb.boot_select_plain(U, rr_d)):
+            if not bit_equal(x, y):
+                fail(f"sintax m={m_val}: sintax_boot_count_select {name} "
+                     "differs from the select over U")
+        del U
+        turns = ""
+        if other_sx is not None:
+            runs = {"other": lambda: sintax_route(
+                        engine, P_r, words_d, nuw_d, rr_d, rdt,
+                        other_select(other_sx)),
+                    "this": lambda: sb.boot_count_select(*cargs)}
+            for name, x, y in zip(("winner", "top"), runs["other"](), sel):
+                if not bit_equal(x, y):
+                    fail(f"against sintax m={m_val}: {name} differs from "
+                         "the other checkout's route")
+            times = {name: [] for name in runs}
+            for name in ("other", "this", "this", "other"):
+                times[name].append(cuda_ms(runs[name], 1)[0])
+            turns = (f"; against: the other checkout's route (gather, bmm, "
+                     f"its sintax_boot_select) against "
+                     f"sintax_boot_count_select, ms {json.dumps(times)}")
+            torch.cuda.empty_cache()
         top = int(sel[1].max())
         if m_val == 0 and top != 0:
             fail("sintax m=0: non-zero top")
@@ -652,18 +933,21 @@ def check_sintax_kernels(engine, chunks, dev):
                               float((P - P_plain).abs().max()))
         out["select_err"] = max(out["select_err"], float(max(
             (x - y).abs().max() for x, y in zip(sel, sel_plain))))
-        print(f"sintax kernels m={m_val}: {tuple(U.shape)} {dtype}; "
-              f"sintax_pick_hist {hist_ms:.3f} ms, plain {hist_plain_ms:.3f}"
-              f" ms; gather {gather_ms:.3f} ms; product {prod_ms:.3f} ms; "
-              f"sintax_boot_select {sel_ms:.3f} ms, plain {sel_plain_ms:.3f}"
-              f" ms; bounds {hist_b[0]:.4f} ms by {hist_b[1]}, "
-              f"{sel_b[0]:.4f} ms by {sel_b[1]}; top max {top}; bit-equal "
-              "to plain", flush=True)
+        print(f"sintax kernels m={m_val}: {tuple(P.shape)} P of {dtype}, "
+              f"{T} targets, {live} live word rows; sintax_pick_hist "
+              f"{hist_ms:.3f} ms, plain {hist_plain_ms:.3f} ms, bound "
+              f"{hist_b[0]:.4f} ms by {hist_b[1]}; sintax_boot_count_select "
+              f"{sel_ms:.3f} ms, bound {sel_b[0]:.4f} ms by {sel_b[1]}, "
+              f"plain {sel_plain_ms:.3f} ms; the route it replaced "
+              f"({rdt}): gather {gather_ms:.3f} ms, product "
+              f"{prod_ms:.3f} ms{turns}; top max {top}; bit-equal to "
+              f"plain; clocks {clocks()}", flush=True)
         if m_val == 32:
             out.update(hist_ms=hist_ms, hist_plain_ms=hist_plain_ms,
                        sel_ms=sel_ms, sel_plain_ms=sel_plain_ms,
                        hist_bound=hist_b, sel_bound=sel_b)
-        del U, P, P_plain, sel_plain
+        del P, P_r, P_plain, sel_plain
+        torch.cuda.empty_cache()
     return out
 
 
@@ -740,7 +1024,7 @@ def gate_crossover(gate):
     return float("nan")
 
 
-def phase_sintax(d, dev, phase_done):
+def phase_sintax(d, dev, phase_done, other_sx=None):
     """Phases 6 and 7 in directory d; returns the kernel check's numbers
     and the launch counts of the main run."""
     import torch
@@ -756,11 +1040,16 @@ def phase_sintax(d, dev, phase_done):
     dbf, qf = sizes_of[60000]
     t0 = time.perf_counter()
     engine, chunks = sintax_chunks(dbf, qf, d)
+    # the incidence build's index_put_ (accumulate) reads two int64
+    # indices a posting and reads and writes its byte
+    posts = int(engine.w_mat.sum(dtype=torch.int64))
+    build_b = bound(18 * posts, posts)
     print(f"sintax chunk: 128 jobs x 256 slots from the port's run on 64 "
           f"queries in {time.perf_counter() - t0:.2f} s; incidence "
-          f"{tuple(engine.w_mat.shape)} int8, max {engine.inc_absmax}",
-          flush=True)
-    sx = check_sintax_kernels(engine, chunks, dev)
+          f"{tuple(engine.w_mat.shape)} int8, max {engine.inc_absmax}, "
+          f"{posts} postings, the build's index_put_ bound "
+          f"{build_b[0]:.4f} ms by {build_b[1]}", flush=True)
+    sx = check_sintax_kernels(engine, chunks, dev, other_sx)
     del engine, chunks
     torch.cuda.empty_cache()
     phase_done(6, t_phase)
@@ -780,11 +1069,11 @@ def phase_sintax(d, dev, phase_done):
     if r.returncode != 0:
         fail(f"sintax host judge exited {r.returncode}: {r.stderr[-2000:]}")
     sb.pick_hist.launches = 0
-    sb.boot_select.launches = 0
+    sb.boot_count_select.launches = 0
     t_port, stage, _ = sintax_run(base + ["-sintax_device", "-tabbedout",
                                           port], stats)
     launches = {"sintax_pick_hist": sb.pick_hist.launches,
-                "sintax_boot_select": sb.boot_select.launches}
+                "sintax_boot_count_select": sb.boot_count_select.launches}
     with open(ref, "rb") as f:
         ref_b = f.read()
     with open(port, "rb") as f:
@@ -900,7 +1189,7 @@ def main():
     print(f"build: {_build.library_path().name} "
           f"{'reused' if cached else 'built'} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    other = None if against is None else load_other_fwd(against)
+    other = None if against is None else load_other(against)
     phase_done(2, t0)
 
     # 3. kernels against their plain versions
@@ -913,7 +1202,13 @@ def main():
     big = check_kernels("(b) 3kb", kernel_pairs(rng, 512, 3000, indel=40),
                         120, ap_nd, dev, 3, other)
     check_kernels("(c) 1.5kb band 601", kernel_pairs(rng, 64, 1500), 300,
-                  ap_nd, dev, 3)
+                  ap_nd, dev, 3, other)
+    check_kernels("(d) 4kb band 2047", widest_band_pairs(rng, 16, 4000),
+                  1015, ap_nd, dev, 3, other)
+    # one launch of 600-nt pairs on each side of the trace kernels' crossing
+    for tag, n in (("(e) 600nt warp side", wtr.WARP_MAX_LOAD // 2),
+                   ("(f) 600nt thread side", 2 * wtr.WARP_MAX_LOAD)):
+        check_kernels(tag, kernel_pairs(rng, n, 600), 60, ap, dev, 3)
     phase_done(3, t_phase)
 
     # 4. the device oracle: its kernels against their plain versions, then
@@ -1050,16 +1345,17 @@ def main():
             fail(f"device_cells {ds['device_cells']}, not 5,532,965,001")
         if min(launches.values()) <= 0:
             fail(f"a kernel was not launched on the main path: {launches}")
-    time_slice_launches(seen)
+    time_slice_launches(seen, other)
     if other is not None:
-        compare_fwd("slice launches", seen, other)
+        compare_fwd("slice launches", seen, other["fwd"])
     dev_rate = ds["device_cells"] / align_s[0]
     del seen
     torch.cuda.empty_cache()
     phase_done(5, t_phase)
 
     with tempfile.TemporaryDirectory() as d:
-        sx, sx_launches = phase_sintax(d, dev, phase_done)
+        sx, sx_launches = phase_sintax(
+            d, dev, phase_done, None if other is None else other["sintax"])
 
     # 8. the cost model's cold-start constants on this card
     t_phase = time.perf_counter()
@@ -1097,9 +1393,9 @@ def main():
             "usearch12_tpu/amplicon/sintax_device.py:132",
             sx_launches["sintax_pick_hist"], sx["hist_err"], sx["hist_ms"],
             sx["hist_plain_ms"], sx["hist_bound"]),
-        row("sintax_boot_select", "sintax_boot.cu",
-            "usearch12_tpu/amplicon/sintax_device.py:156",
-            sx_launches["sintax_boot_select"], sx["select_err"],
+        row("sintax_boot_count_select", "sintax_boot.cu",
+            "usearch12_tpu/amplicon/sintax_device.py:143",
+            sx_launches["sintax_boot_count_select"], sx["select_err"],
             sx["sel_ms"], sx["sel_plain_ms"], sx["sel_bound"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -140,9 +140,13 @@ def test_banded_nw_kernels_match_plain_versions(card, radius, pen):
 
 
 @pytest.mark.parametrize("m_val,mmax,t,dtype", [
-    (32, 32, 500, torch.float16), (200, 256, 500, torch.float32),
-    (0, 8, 300, torch.float16), (32, 32, 1, torch.float32)])
+    (32, 32, 500, torch.int8), (200, 256, 500, torch.float16),
+    (0, 8, 300, torch.int8), (32, 32, 1, torch.int8)])
 def test_sintax_kernels_match_plain_versions(card, m_val, mmax, t, dtype):
+    """sintax_pick_hist and the fused count-and-select kernel against
+    their plain versions (T = 1, T not a multiple of the tile, m > 127 in
+    float16, m = 0 where every target ties), and the engine on the card
+    against the engine on the CPU."""
     from usearch12_tpu_torch.amplicon.sintax_device import TorchBootEngine
     from usearch12_tpu_torch.ops import sintax_boot as sb
     rng = np.random.default_rng(m_val + t)
@@ -152,27 +156,124 @@ def test_sintax_kernels_match_plain_versions(card, m_val, mmax, t, dtype):
                             for s in sizes]).astype(np.int32)
     sizes = np.array([min(int(s), t) for s in sizes])
     nuw = rng.integers(8, uwmax + 1, cq).astype(np.int32)
-    words = rng.integers(0, v, (cq, uwmax)).astype(np.int32)
+    nuw[0] = 0
+    words = rng.integers(-4, v + 4, (cq, uwmax)).astype(np.int32)
     m = np.full(cq, m_val, np.int32)
     stream = rng.integers(0, 2 ** 32, boots * mmax,
                           dtype=np.uint64).astype(np.uint32)
     rr = rng.integers(0, 2 ** 32, (cq, boots),
                       dtype=np.uint64).astype(np.uint32)
     up = lambda x: torch.from_numpy(x.view(np.int32)).to(card)  # noqa: E731
-    n0 = (sb.pick_hist.launches, sb.boot_select.launches)
+    n0 = (sb.pick_hist.launches, sb.boot_count_select.launches)
+    eng = TorchBootEngine(v, t, sizes, posts, boots, card)
+    assert sb.product_dtype(card, m_val, eng.inc_absmax) == dtype
     P = sb.pick_hist(up(nuw), up(m), up(stream), boots, uwmax, dtype)
     assert torch.equal(P, sb.pick_hist_plain(up(nuw), up(m), up(stream),
                                              boots, uwmax, dtype))
-    eng = TorchBootEngine(v, t, sizes, posts, boots, card)
-    U = sb.boot_product(P, sb.gather_rows(eng.w_mat, up(words), up(nuw),
-                                          dtype))
-    got = sb.boot_select(U, up(rr))
-    want = sb.boot_select_plain(U, up(rr))
+    args = (P, up(words), up(nuw), eng.w_mat, up(rr))
+    got = sb.boot_count_select(*args)
+    want = sb.boot_count_select_plain(*args)
+    U = sb.boot_product(P.float(), sb.gather_rows(eng.w_mat, up(words),
+                                                  up(nuw), torch.float32))
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(got, want))
-    assert (sb.pick_hist.launches, sb.boot_select.launches) == \
+    assert all(torch.equal(x, y)
+               for x, y in zip(got, sb.boot_select_plain(U, up(rr))))
+    assert (sb.pick_hist.launches, sb.boot_count_select.launches) == \
         (n0[0] + 1, n0[1] + 1)
     cpu = TorchBootEngine(v, t, sizes, posts, boots, torch.device("cpu"))
     w_cpu, t_cpu = cpu.run_chunk(words, nuw, m, stream, rr)
     w_card, t_card = eng.run_chunk(words, nuw, m, stream, rr)
     assert np.array_equal(w_cpu, w_card) and np.array_equal(t_cpu, t_card)
+
+
+def test_sintax_boot_step_above_2048_picks(card):
+    """More than 2048 picks a boot on the card: counts in float32, split
+    into float16 parts over repeated slots, equal to the engine on the
+    CPU."""
+    from usearch12_tpu_torch.amplicon.sintax_device import TorchBootEngine
+    from usearch12_tpu_torch.ops import sintax_boot as sb
+    rng = np.random.default_rng(2049)
+    cq, boots, uwmax, v, t = 16, 20, 16, 64, 500
+    sizes = rng.integers(0, 40, v)
+    posts = np.concatenate([rng.choice(t, int(s), replace=False)
+                            for s in sizes]).astype(np.int32)
+    nuw = rng.integers(8, 12, cq).astype(np.int32)
+    words = np.stack([rng.choice(v, uwmax, replace=False)
+                      for _ in range(cq)]).astype(np.int32)
+    m = np.full(cq, 20000, np.int32)
+    stream = rng.integers(0, 2 ** 32, boots * 32768,
+                          dtype=np.uint64).astype(np.uint32)
+    rr = rng.integers(0, 2 ** 32, (cq, boots),
+                      dtype=np.uint64).astype(np.uint32)
+    n0 = sb.boot_count_select.launches
+    card_eng = TorchBootEngine(v, t, sizes, posts, boots, card)
+    w_card, t_card = card_eng.run_chunk(words, nuw, m, stream, rr)
+    assert sb.boot_count_select.launches == n0 + 1
+    cpu = TorchBootEngine(v, t, sizes, posts, boots, torch.device("cpu"))
+    w_cpu, t_cpu = cpu.run_chunk(words, nuw, m, stream, rr)
+    assert np.array_equal(w_cpu, w_card) and np.array_equal(t_cpu, t_card)
+    assert t_cpu.max() > sb.FP16_EXACT
+
+
+def _trace_both_variants(card, pairs, radius, ap):
+    """Both wavefront_trace kernels on pairs, bit-equal to the plain
+    version; returns the scores and paths."""
+    w = wnw.pack_launch(pairs, *wnw.pair_geometry(pairs, radius), card)
+    gp = wnw.gap_params(ap).to(card)
+    tb, mlast, dlb = wnw.wavefront_fwd(*w, gp, *wnw.match_mismatch(ap))
+    args = (tb, w.tb_off, mlast, dlb, w.la, w.lb, w.dlo, w.bw, gp)
+    outs = [wtr.wavefront_trace(*args, warp=x) for x in (True, False)]
+    plain = wtr.wavefront_trace_plain(*args, outs[0][1].shape[1])
+    torch.cuda.synchronize()
+    for out in outs:
+        for x, y in zip(out, plain):
+            assert _bit_equal(x, y)
+    return outs[0][0].cpu().numpy(), wtr.decode_ops(
+        outs[0][1].cpu().numpy(), outs[0][2].cpu().numpy())
+
+
+def test_trace_kernels_at_the_widest_band(card):
+    """Band 2047 (BW_MAX; radius 1015 with |la - lb| = 16, the widest
+    radius at which la != lb still fits): the warp kernel's largest
+    windows (15 anti-diagonals of 512 bytes) and its band-edge cells; and
+    short lopsided pairs whose band (la + lb - 1 diagonals) reaches both
+    edges of the matrix."""
+    ap = wnw.nucleo_params(-10.3, -1.1, -0.7, -0.4)
+    rng = np.random.default_rng(11)
+    conv = np.frombuffer(b"ACGT", np.uint8)
+    pairs = []
+    for k in range(10):
+        la = int(rng.integers(1500, 4500)) if k < 6 else int(
+            rng.integers(900, 1500))
+        lb = la + (16 if k % 2 else -16) if k < 6 else 2048 - la
+        a = rng.integers(0, 4, la)
+        b = np.resize(a, lb)
+        b[rng.random(lb) < 0.15] = rng.integers(0, 4)
+        pairs.append((conv[a], conv[b]))
+    w_bw = wnw.pair_geometry(pairs, 1015)[3]
+    assert w_bw.max() == wnw.BW_MAX
+    s, p = _trace_both_variants(card, pairs, 1015, ap)
+    for k in (0, 7):
+        s_o, p_o = banded_nw_main_diag(*pairs[k], 1015, ap)
+        assert np.float32(s_o) == s[k] and p_o == p[k]
+
+
+@pytest.mark.parametrize("long_side", ["a", "b"])
+def test_trace_kernels_on_lopsided_pairs(card, long_side):
+    """la >> lb and lb >> la: paths that run along the band edge
+    (k == -1) or down the j == lb column, and that start in state I."""
+    ap = wnw.nucleo_params(-10.0, -1.0, -0.5, -0.5)
+    rng = np.random.default_rng(5)
+    conv = np.frombuffer(b"ACGT", np.uint8)
+    pairs = []
+    for _ in range(40):
+        n_long, n_short = int(rng.integers(300, 1200)), int(
+            rng.integers(1, 60))
+        a, b = conv[rng.integers(0, 4, n_long)], conv[rng.integers(
+            0, 4, n_short)]
+        pairs.append((a, b) if long_side == "a" else (b, a))
+    s, p = _trace_both_variants(card, pairs, 600, ap)
+    for k in range(0, 40, 10):
+        s_o, p_o = banded_nw_main_diag(*pairs[k], 600, ap)
+        assert np.float32(s_o) == s[k] and p_o == p[k]

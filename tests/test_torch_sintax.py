@@ -44,6 +44,7 @@ def _csr(rng, v, t, max_size=12):
 CASES = {
     "default_m32": (40, 32, 32, 8),
     "m_over_127": (40, 200, 256, 8),
+    "m_over_2048": (40, 20000, 32768, 8),
     "divide_mode": (40, None, 32, 8),
     "m_zero": (40, 0, 8, 8),
     "one_target": (1, 32, 32, 8),
@@ -82,6 +83,70 @@ def test_boot_step_equals_jax_run_chunk(case):
         assert not got[0].any()
 
 
+def _chunk_inputs(case):
+    """One chunk of CASES[case] (the inputs test_boot_step_equals_jax_run_chunk
+    makes), or "straddle": every word posts targets 20..60 of 70, so every
+    boot row ties on 41 targets across tile boundaries."""
+    v, boots, cq, uwmax = 64, 20, 8, 16
+    if case == "straddle":
+        rng = np.random.default_rng(99)
+        t, m_val, mmax, live = 70, 32, 32, 8
+        sizes = np.full(v, 41, np.int64)
+        posts = np.tile(np.arange(20, 61, dtype=np.int32), v)
+    else:
+        t, m_val, mmax, live = CASES[case]
+        rng = np.random.default_rng(sorted(CASES).index(case))
+        sizes, posts = _csr(rng, v, t)
+    words = np.zeros((cq, uwmax), np.int32)
+    nuw = np.ones(cq, np.int32)
+    m = np.ones(cq, np.int32)
+    rr = np.zeros((cq, boots), np.uint32)
+    for k in range(live):
+        nuw[k] = rng.integers(8, uwmax + 1)
+        words[k, :nuw[k]] = rng.choice(v, nuw[k], replace=False)
+        m[k] = rng.integers(1, 25) if m_val is None else m_val
+        rr[k] = rng.integers(0, 2 ** 32, boots, dtype=np.uint64)
+    stream = rng.integers(0, 2 ** 32, boots * mmax,
+                          dtype=np.uint64).astype(np.uint32)
+    return (v, t, sizes, posts, boots), (words, nuw, m, stream, rr)
+
+
+_JAX_CHUNKS = {}
+
+
+def _jax_chunk(case):
+    if case not in _JAX_CHUNKS:
+        db, chunk = _chunk_inputs(case)
+        _JAX_CHUNKS[case] = BootEngine(*db).run_chunk(*chunk)
+    return _JAX_CHUNKS[case]
+
+
+@pytest.mark.parametrize("tile", [1, 7, 32])
+@pytest.mark.parametrize("case", list(CASES) + ["straddle"])
+def test_tile_merge_equals_select_and_jax(case, tile):
+    """The plain version of the card's two-stage count and select (tile
+    partials merged in ascending order, the tie found in one recomputed
+    tile) equals boot_select_plain over U and the JAX step."""
+    db, (words, nuw, m, stream, rr) = _chunk_inputs(case)
+    eng = TorchBootEngine(*db, CPU)
+    up = lambda x: torch.from_numpy(x.view(np.int32))  # noqa: E731
+    boots, uwmax = eng.B, words.shape[1]
+    P = sb.pick_hist(up(nuw), up(m), up(stream), boots, uwmax,
+                     torch.float32)
+    got = sb.boot_count_select_plain(P, up(words), up(nuw), eng.w_mat,
+                                     up(rr), tile)
+    U = sb.boot_product(P, sb.gather_rows(eng.w_mat, up(words), up(nuw),
+                                          torch.float32))
+    want = sb.boot_select_plain(U, up(rr))
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    jax_w, jax_t = _jax_chunk(case)
+    np.testing.assert_array_equal(got[0].numpy(), jax_w)
+    np.testing.assert_array_equal(got[1].numpy(), jax_t)
+    if case == "straddle":
+        assert set(got[0][:8].flatten().tolist()) <= set(range(20, 61))
+        assert len(set(got[0][:8].flatten().tolist())) > 5
+
+
 def test_incidence_is_additive_int8():
     """A target posted twice under one word counts twice (the JAX build's
     scatter-add), and the product type stays exact."""
@@ -90,11 +155,37 @@ def test_incidence_is_additive_int8():
     eng = TorchBootEngine(3, 3, sizes, posts, 4, CPU)
     assert eng.w_mat.tolist() == [[1, 2, 0], [0, 0, 0], [0, 0, 1]]
     assert eng.inc_absmax == 2
-    assert sb.product_dtype(torch.device("cuda"), 1024 * 2) == torch.float16
-    assert sb.product_dtype(torch.device("cuda"), 2049) == torch.float32
-    assert sb.product_dtype(CPU, 10) == torch.float32
+    cuda = torch.device("cuda")
+    assert sb.product_dtype(cuda, 127, eng.inc_absmax) == torch.int8
+    assert sb.product_dtype(cuda, 128, eng.inc_absmax) == torch.float16
+    assert sb.product_dtype(cuda, 2048, eng.inc_absmax) == torch.float16
+    assert sb.product_dtype(cuda, 2049, eng.inc_absmax) == torch.float16
+    assert sb.product_dtype(CPU, 10, eng.inc_absmax) == torch.float32
     with pytest.raises(ValueError):
-        sb.product_dtype(CPU, (1 << 24) + 1)
+        sb.product_dtype(CPU, (1 << 23) + 1, eng.inc_absmax)
+
+
+def test_split_slots_above_2048_picks():
+    """Counts above 2048, which the card's float16 operand does not hold,
+    split over repeated word slots (the card's route for more than 2048
+    picks a boot): the parts sum to the counts, and the plain count and
+    select over them equals the JAX step."""
+    db, (words, nuw, m, stream, rr) = _chunk_inputs("m_over_2048")
+    eng = TorchBootEngine(*db, CPU)
+    up = lambda x: torch.from_numpy(x.view(np.int32))  # noqa: E731
+    P = sb.pick_hist(up(nuw), up(m), up(stream), eng.B, words.shape[1],
+                     torch.float32)
+    assert float(P.max()) > sb.FP16_EXACT
+    P16, words16, nuw16 = sb.split_slots(P, up(words), up(nuw))
+    k = words16.shape[1] // words.shape[1]
+    assert k >= 2 and P16.dtype == torch.float16
+    assert float(P16.max()) <= sb.FP16_EXACT
+    assert torch.equal(P16.float().view(*P.shape, k).sum(3), P)
+    assert torch.equal(nuw16, up(nuw) * k)
+    got = sb.boot_count_select_plain(P16, words16, nuw16, eng.w_mat, up(rr))
+    jax_w, jax_t = _jax_chunk("m_over_2048")
+    np.testing.assert_array_equal(got[0].numpy(), jax_w)
+    np.testing.assert_array_equal(got[1].numpy(), jax_t)
 
 
 def test_wrappers_refuse_bad_chunks():
@@ -106,9 +197,12 @@ def test_wrappers_refuse_bad_chunks():
         sb.pick_hist(nuw, m, stream, 10, 16, torch.float32)
     with pytest.raises(ValueError, match="stream"):
         sb.pick_hist(nuw, m, stream[:5], 10, 32, torch.float32)
-    with pytest.raises(ValueError):
-        sb.boot_select(torch.zeros((2, 3, 4)),
-                       torch.zeros((2, 4), dtype=torch.int32))
+    i32 = torch.int32
+    counts = (torch.zeros((2, 3, 8)), torch.zeros((2, 8), dtype=i32),
+              torch.full((2,), 8, dtype=i32),
+              torch.zeros((5, 7), dtype=torch.int8))
+    with pytest.raises(ValueError):          # rr of 4 boots, P of 3
+        sb.boot_count_select(*counts, torch.zeros((2, 4), dtype=i32))
 
 
 def _classifier(pkg, dbf):
@@ -200,10 +294,10 @@ def test_tabbedout_equals_jax(fixture_db, tmp_path, monkeypatch, strand,
             "-randseed", "1"] + extra
     stats = tmp_path / "stats.jsonl"
     monkeypatch.setenv("USEARCH_DEVICE_STATS", str(stats))
-    sb.pick_hist.launches = sb.boot_select.launches = 0
+    sb.pick_hist.launches = sb.boot_count_select.launches = 0
     port = _tabbed(port_cli, tmp_path, "port", base + ["-sintax_device"],
                    device="cpu")
-    assert (sb.pick_hist.launches, sb.boot_select.launches) == (0, 0)
+    assert (sb.pick_hist.launches, sb.boot_count_select.launches) == (0, 0)
     rec = json.loads(stats.read_text())
     assert rec == {"cmd": "sintax", "device": True,
                    "reason": "-sintax_device", "queries": 120,
@@ -249,7 +343,7 @@ def test_no_fallback_on_device_error(fixture_db, tmp_path, monkeypatch):
             "-tabbedout", str(tmp_path / "out")]
 
     def broken(*_a, **_k):
-        raise RuntimeError("sintax_boot_select: CUDA error 700")
+        raise RuntimeError("sintax_boot_count_select: CUDA error 700")
 
     monkeypatch.setattr(TorchBootEngine, "run_chunk", broken)
     with pytest.raises(RuntimeError, match="CUDA error"):

@@ -255,6 +255,21 @@ def test_wrappers_reject_other_devices_and_bad_inputs():
     assert wnw.wavefront_fwd.launches == 0
 
 
+@pytest.mark.parametrize("pairs,total,longest,warp", [
+    (18549, 5509487, 2208, True),     # long-read amplicons, mixed lengths
+    (2308, 8000000, 3700, True),      # the long-contig slice's largest
+    (65536, 65536 * 500, 520, False),  # many short pairs of one length
+    (16384, 16384 * 2000, 2040, False),
+])
+def test_trace_kernel_choice_reads_the_load(pairs, total, longest, warp):
+    """The warp kernel while a launch's summed steps stay under
+    WARP_MAX_LOAD times its longest pair's, whatever its pair count; the
+    thread kernel above."""
+    assert wtr.takes_warp_kernel(total, longest) is warp
+    assert wtr.takes_warp_kernel(wtr.WARP_MAX_LOAD * longest - 1, longest)
+    assert not wtr.takes_warp_kernel(wtr.WARP_MAX_LOAD * longest, longest)
+
+
 @pytest.mark.parametrize("cls", [0, 5, 15])
 def test_state_converts_jax_aln_params(cls):
     """The JAX package's AlnParams reach the port through state.py as the

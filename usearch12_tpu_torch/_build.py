@@ -89,6 +89,7 @@ def load_library():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            i64 = ctypes.c_longlong
             lib.wavefront_fwd_launch.restype = i32
             lib.wavefront_fwd_launch.argtypes = [
                 vp, vp, i32, i32,              # a_let, b_let, amax, bmax
@@ -100,11 +101,14 @@ def load_library():
                 vp]                            # stream
             lib.wavefront_trace_launch.restype = i32
             lib.wavefront_trace_launch.argtypes = [
-                vp, vp, vp, i32,               # tb, tb_off, mlast, bmax
+                vp, i64, vp, vp,               # tb, tb_bytes, tb_off, order
+                vp, i32,                       # mlast, bmax
                 vp, vp, vp, vp, vp,            # dlb, la, lb, dlo, bw
-                vp, i32,                       # gp, n_pairs
+                vp, i32, i32, i32,             # gp, n_pairs, nb_max, warp
                 vp, vp, i32, vp,               # scores, ops, stride, lens
                 vp]                            # stream
+            lib.wavefront_trace_smem.restype = i32
+            lib.wavefront_trace_smem.argtypes = [i32]
             lib.banded_nw_fwd_launch.restype = i32
             lib.banded_nw_fwd_launch.argtypes = [
                 vp, vp, i32, i32,              # a_let, b_let, amax, bmax
@@ -125,10 +129,14 @@ def load_library():
                 vp, vp, vp, i32,               # nuw, m, stream, stream_len
                 i32, i32, i32, i32,            # boots, cq, uwmax, dtype
                 vp, vp]                        # P, stream
-            lib.sintax_boot_select_launch.restype = i32
-            lib.sintax_boot_select_launch.argtypes = [
-                vp, i32, vp, i32, i32,         # U, dtype, rr, rows, T
-                vp, vp, vp]                    # winner, top, stream
+            lib.sintax_boot_count_select_launch.restype = i32
+            lib.sintax_boot_count_select_launch.argtypes = [
+                vp, i32, i32, i32, i32,        # P, dtype, cq, boots, uwmax
+                vp, vp, vp, i64, i32, i32,     # words, nuw, w_mat, ld, V, T
+                vp, vp, vp, vp,                # rr, part, winner, top
+                vp]                            # stream
+            lib.sintax_boot_partial_bytes.restype = i64
+            lib.sintax_boot_partial_bytes.argtypes = [i32, i32, i32]
             lib.wavefront_cuda_error_string.restype = ctypes.c_char_p
             lib.wavefront_cuda_error_string.argtypes = [i32]
             _lib = lib

@@ -50,8 +50,11 @@ class TorchBootEngine:
         self.B = boots
         self.device = device
         nnz = int(sizes.sum())
-        self.w_mat = torch.zeros((v, max(t, 1)), dtype=torch.int8,
-                                 device=device)
+        # rows of a multiple of 16 bytes, as the card's boot-count kernel
+        # copies them; w_mat is the (v, t) view
+        width = max(t, 1)
+        self.w_mat = torch.zeros((v, -(-width // 16) * 16), dtype=torch.int8,
+                                 device=device)[:, :width]
         if t and nnz:
             sizes_d = torch.from_numpy(sizes.astype(np.int64)).to(device)
             words = torch.repeat_interleave(

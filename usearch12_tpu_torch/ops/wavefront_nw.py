@@ -87,7 +87,7 @@ def wavefront_fwd(a_let, b_let, la, lb, dlo, bw, tb_off, tb_bytes: int,
     for name, x in (("la", la), ("lb", lb), ("dlo", dlo), ("bw", bw)):
         check_tensor(name, x, torch.int32, 1, dev, P)
     amax, bmax = a_let.shape[1], b_let.shape[1]
-    bw_max, _ = check_geometry(la, lb, bw, tb_off, tb_bytes, bmax, amax)
+    bw_max, _, _ = check_geometry(la, lb, bw, tb_off, tb_bytes, bmax, amax)
     if bw_max > BW_MAX:
         raise ValueError(f"wavefront_fwd: band {bw_max} wider than {BW_MAX}")
     if dev.type == "cpu":

@@ -58,27 +58,52 @@ def check_geometry(la, lb, bw, tb_off, tb_bytes: int, bmax: int,
     """Raise ValueError unless every pair is non-empty, has a band of at
     least one diagonal, fits its letter rows and has its traceback inside
     tb_bytes: the kernels index their buffers unchecked.  Returns
-    (widest band, longest la + lb)."""
+    (widest band, longest la + lb, la + lb summed over the pairs)."""
     if la.numel() == 0:
         raise ValueError("no pairs")
     la, lb, bw = la.to(torch.int64), lb.to(torch.int64), bw.to(torch.int64)
     end = tb_off + tb_nbytes(la, lb, bw)
     (la_min, lb_min, bw_min, off_min, la_max, lb_max, bw_max, end_max,
-     steps) = torch.stack([la.min(), lb.min(), bw.min(), tb_off.min(),
-                           la.max(), lb.max(), bw.max(), end.max(),
-                           (la + lb).max()]).tolist()
+     steps, total) = torch.stack([la.min(), lb.min(), bw.min(), tb_off.min(),
+                                  la.max(), lb.max(), bw.max(), end.max(),
+                                  (la + lb).max(), (la + lb).sum()]).tolist()
     if min(la_min, lb_min, bw_min) < 1 or off_min < 0 \
             or end_max > tb_bytes or lb_max > bmax \
             or (amax is not None and la_max > amax):
         raise ValueError("pair geometry does not fit the buffers")
-    return bw_max, steps
+    return bw_max, steps, total
 
 
-def wavefront_trace(tb, tb_off, mlast, dlb, la, lb, dlo, bw, gp):
+def ops_stride(steps: int) -> int:
+    """Bytes of one row of packed path codes for paths of up to `steps`
+    steps: 4 codes a byte, rounded up to 16 bytes so that the kernel
+    stores whole words."""
+    return ((steps + 3) // 4 + 15) // 16 * 16
+
+
+# The warp kernel (one warp per pair) issues every step of every pair;
+# the thread kernel (one thread per pair) waits on its longest pair's chain
+# of dependent loads.  So the warp kernel is the faster while a launch's
+# load, its steps summed over its pairs in units of its longest pair's,
+# stays below WARP_MAX_LOAD: trace_crossover.py measured the crossing on
+# the H100 at loads of 9,400 to 11,000 for pairs of 250 to 1,000 nt (see
+# PERF.md).
+WARP_MAX_LOAD = 10000
+
+
+def takes_warp_kernel(total_steps: int, longest: int) -> bool:
+    """Whether the wrapper takes the warp kernel for a launch whose pairs
+    have total_steps la + lb steps, the longest `longest`."""
+    return total_steps < WARP_MAX_LOAD * longest
+
+
+def wavefront_trace(tb, tb_off, mlast, dlb, la, lb, dlo, bw, gp,
+                    warp: Optional[bool] = None):
     """Scores and paths of P >= 1 pairs from wavefront_fwd's outputs.
 
     Returns (scores (P,) float32, ops (P, stride) uint8 packed 2-bit
-    codes, lens (P,) int32 path lengths), stride = ceil(max(la+lb) / 4).
+    codes, lens (P,) int32 path lengths), stride = ops_stride(max(la+lb)).
+    On the card `warp` picks the kernel (None: takes_warp_kernel()).
     """
     dev = tb.device
     if dev.type not in ("cpu", "cuda"):
@@ -91,23 +116,33 @@ def wavefront_trace(tb, tb_off, mlast, dlb, la, lb, dlo, bw, gp):
     check_tensor("tb_off", tb_off, torch.int64, 1, dev, P)
     for name, x in (("la", la), ("lb", lb), ("dlo", dlo), ("bw", bw)):
         check_tensor(name, x, torch.int32, 1, dev, P)
-    _, steps = check_geometry(la, lb, bw, tb_off, tb.numel(),
-                              mlast.shape[1])
-    stride = (steps + 3) // 4
+    bw_max, steps, total = check_geometry(la, lb, bw, tb_off, tb.numel(),
+                                          mlast.shape[1])
+    stride = ops_stride(steps)
     if dev.type == "cpu":
         return wavefront_trace_plain(tb, tb_off, mlast, dlb, la, lb, dlo,
                                      bw, gp, stride)
+    if warp is None:
+        warp = takes_warp_kernel(total, steps)
+    lib = _build.load_library()
+    nb_max = ((bw_max + 1) // 2 + 1) // 2
+    if warp and (lib.wavefront_trace_smem(nb_max) <= 0
+                 or tb.data_ptr() % 16):
+        raise ValueError(f"wavefront_trace: band {bw_max} or an unaligned "
+                         "traceback does not fit the warp kernel")
     scores = torch.empty(P, dtype=torch.float32, device=dev)
     ops = torch.zeros((P, stride), dtype=torch.uint8, device=dev)
     lens = torch.empty(P, dtype=torch.int32, device=dev)
-    lib = _build.load_library()
+    # pairs longest first, so that no long pair starts last
+    order = torch.argsort(la + lb, descending=True, stable=True).to(
+        torch.int32)
     with torch.cuda.device(dev):
         err = lib.wavefront_trace_launch(
-            tb.data_ptr(), tb_off.data_ptr(), mlast.data_ptr(),
-            mlast.shape[1], dlb.data_ptr(), la.data_ptr(), lb.data_ptr(),
-            dlo.data_ptr(), bw.data_ptr(), gp.data_ptr(), P,
-            scores.data_ptr(), ops.data_ptr(), stride, lens.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            tb.data_ptr(), tb.numel(), tb_off.data_ptr(), order.data_ptr(),
+            mlast.data_ptr(), mlast.shape[1], dlb.data_ptr(), la.data_ptr(),
+            lb.data_ptr(), dlo.data_ptr(), bw.data_ptr(), gp.data_ptr(), P,
+            nb_max, int(warp), scores.data_ptr(), ops.data_ptr(), stride,
+            lens.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch("wavefront_trace", err)
     wavefront_trace.launches += 1
     return scores, ops, lens

@@ -21,10 +21,12 @@ Phases, each printing a line, any failure exits non-zero:
   4. oracle: the row-sweep kernels of the device oracle BandedNWDevice
      (banded_nw_fwd, banded_nw_chase) bit for bit against their plain
      versions at the 65,536 pairs of 250 nt (radius 16) and at 2,048
-     pairs of 1 kb (radius 62, band 125, non-dyadic gap penalties); then
-     BandedNWDevice.align_device on all 65,536 pairs of 250 nt, whose
-     scores and paths must equal those of TorchWaveAligner.align (the
-     hole DP kernels of phase 3) on every pair;
+     pairs of 1 kb (radius 62, band 125, non-dyadic gap penalties),
+     banded_nw_fwd timed through its wrapper and alone; then
+     BandedNWDevice.align_device on all
+     65,536 pairs of 250 nt and on the 2,048 pairs of 1 kb, whose scores
+     and paths must equal those of TorchWaveAligner.align (the hole DP
+     kernels of phase 3) on every pair;
   5. slice: usearch_global through the port's command line
      (usearch12_tpu_torch.cli.main, in this process so that the kernels'
      launch counts can be read) on the long-contig workload (32 queries x
@@ -40,9 +42,10 @@ Phases, each printing a line, any failure exits non-zero:
      their plain versions on one full chunk of the SINTAX workload (128
      jobs x 100 boots x 256 word slots against the 60,000-target
      incidence), at m = 32, at m = 200 (> 127, float16) and at m = 0
-     (every target ties), with the route the fused kernel replaced (the
-     gather, mask and cast of the incidence rows, and the bmm) timed
-     beside it;
+     (every target ties); the histogram timed through its wrapper and
+     alone beside torch.bincount over the same picks (whose counts must
+     equal it), the fused kernel beside the route it replaced (the
+     gather, mask and cast of the incidence rows, and the bmm);
   7. sintax: the JAX package's SINTAX device workload (bench.py's
      _gen_sintax_big, seed 17, not cut: 60,000 targets of 248 nt, 1,500
      queries, -strand both -randseed 1) through the port's command line
@@ -62,20 +65,26 @@ float16 989 TFLOP/s).
 
 With --against DIR, DIR being another checkout of the repository (for
 example a parent commit unpacked with git archive), its csrc/
-wavefront_fwd.cu, wavefront_trace.cu and sintax_boot.cu are built with
-this tree's nvcc flags, each into a library of its own.  Its
-wavefront_fwd is timed against this tree's at (a), (b), (c), (d) and on
-the slice's launches, bit-equal, in turns other, this, this, other
+wavefront_fwd.cu, wavefront_trace.cu, banded_nw.cu and sintax_boot.cu
+are built with this tree's nvcc flags, each into a library of its own.
+Its wavefront_fwd is timed against this tree's at (a), (b), (c), (d) and
+on the slice's launches, bit-equal, in turns other, this, this, other
 (this tree's kernel also with the pairs in launch order instead of
-longest first); its wavefront_trace the same way; and, where it has the
-sintax_boot_select kernel, its SINTAX route (gather, bmm, that kernel)
-against this tree's fused kernel on phase 6's chunks.  DIR's
+longest first); its wavefront_trace the same way; its banded_nw_fwd and
+banded_nw_chase, kernels alone, at phase 4's two shapes (its traceback
+mapped onto this tree's layout where they differ); and its
+sintax_pick_hist, alone, on phase 6's chunks.  DIR's
 wavefront_fwd_launch must take this tree's arguments (with the pair
 order), and its wavefront_trace_launch those of the interface version its
 wavefront_trace_interface() returns, or those of the one-thread-a-pair
-entry point where it exports none.
+entry point where it exports none; its banded_nw_fwd_launch takes this
+tree's arguments, and writes the traceback in the layout of the version
+its banded_nw_interface() returns (1, pair-minor, where it exports none).
 Each phase prints its seconds.  The line before the last is the kernel
-summary as JSON, the last line {"ok": true, "device": {...}}.
+summary as JSON, the last line {"ok": true, "device": {...}}.  In the
+summary `ms` is each kernel's time through its wrapper; `kernel_ms` the
+kernel alone, its outputs allocated beforehand, where this run times it
+(banded_nw_fwd and sintax_pick_hist), else null.
 """
 
 import json
@@ -374,11 +383,117 @@ def check_kernels(tag, pairs, radius, ap, dev, reps, other=None):
             "trace_err": float((tr[0] - tr_plain[0]).abs().max())}
 
 
-def check_banded(tag, pairs, radius, ap, dev, reps):
+def raw_banded_fwd(lib, ins, outs):
+    """One launch of a banded_nw_fwd_launch entry point on `ins` (a_let,
+    b_let, la, lb, dlo, bw, gp, match, mismatch, W) into `outs` (tb,
+    mlast, dlb, allocated beforehand, tb in the entry point's layout)."""
+    import torch
+    a_let, b_let, la, lb, dlo, bw, gp, match, mismatch, W = ins
+    tb, mlast, dlb = outs
+    err = lib.banded_nw_fwd_launch(
+        a_let.data_ptr(), b_let.data_ptr(), a_let.shape[1], b_let.shape[1],
+        la.data_ptr(), lb.data_ptr(), dlo.data_ptr(), bw.data_ptr(),
+        gp.data_ptr(), match, mismatch, la.numel(), W, tb.data_ptr(),
+        mlast.data_ptr(), dlb.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        fail(f"banded_nw_fwd_launch returned CUDA error {err}")
+    return outs
+
+
+def banded_outs(version, ins):
+    """Outputs of banded_nw_fwd for an entry point of interface
+    `version`: tb pair-major (2, written whole by the kernel) or
+    pair-minor and cleared (1)."""
+    import torch
+    a_let, la, W = ins[0], ins[2], ins[9]
+    (P, amax), dev = a_let.shape, a_let.device
+    tb = (torch.empty((P, amax, W + 1), dtype=torch.uint8, device=dev)
+          if version == 2 else
+          torch.zeros((amax, W + 1, P), dtype=torch.uint8, device=dev))
+    return (tb, torch.empty((P, W), dtype=torch.float32, device=dev),
+            torch.empty(P, dtype=torch.float32, device=dev))
+
+
+def raw_banded_chase(lib, outs, ins, stride):
+    """One launch of a banded_nw_chase_launch entry point on forward
+    outputs `outs` (tb in that entry point's layout)."""
+    import torch
+    tb, mlast, dlb = outs
+    la, lb, dlo, bw, gp = ins[2:7]
+    P, W = mlast.shape
+    dev = mlast.device
+    res = (torch.empty(P, dtype=torch.float32, device=dev),
+           torch.empty(P, dtype=torch.uint8, device=dev),
+           torch.empty((P, W), dtype=torch.uint8, device=dev),
+           torch.full((P, stride), 0xFF, dtype=torch.uint8, device=dev))
+    err = lib.banded_nw_chase_launch(
+        tb.data_ptr(), ins[0].shape[1], mlast.data_ptr(), W, dlb.data_ptr(),
+        la.data_ptr(), lb.data_ptr(), dlo.data_ptr(), bw.data_ptr(),
+        gp.data_ptr(), P, *(x.data_ptr() for x in res), stride,
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        fail(f"banded_nw_chase_launch returned CUDA error {err}")
+    return res
+
+
+def in_turns(runs, reps, order=("other", "this", "this", "other")):
+    """Each of runs ({name: fn}) timed over `reps` calls in the turns
+    `order`; returns {name: [ms, ...]}."""
+    times = {name: [] for name in runs}
+    for name in order:
+        times[name].append(cuda_ms(runs[name], reps)[0])
+    return times
+
+
+def compare_banded(tag, ins, other, reps):
+    """banded_nw_fwd and banded_nw_chase of another checkout (`other`:
+    (library, interface)) against this tree's, kernels alone, bit-equal
+    (the other's tb mapped onto this layout where they differ), each
+    timed in turns other, this, this, other; returns the times."""
+    import torch
+    from usearch12_tpu_torch import _build
+    lib, version = other
+    this = _build.load_library()
+    o_out, t_out = banded_outs(version, ins), banded_outs(2, ins)
+    raw_banded_fwd(lib, ins, o_out)
+    raw_banded_fwd(this, ins, t_out)
+    o_tb = o_out[0] if version == 2 else o_out[0].permute(2, 0, 1)
+    for name, x, y in zip(("tb", "mlast", "dlb"), t_out,
+                          (o_tb,) + o_out[1:]):
+        if not bit_equal(x, y.contiguous()):
+            fail(f"against oracle {tag}: banded_nw_fwd {name} differs from "
+                 "the other checkout's")
+    fwd = in_turns({"other": lambda: raw_banded_fwd(lib, ins, o_out),
+                    "this": lambda: raw_banded_fwd(this, ins, t_out)}, reps)
+    la, lb = ins[2], ins[3]
+    stride = (int((la + lb).max()) + 3) // 4
+    o_ch = raw_banded_chase(lib, o_out, ins, stride)
+    t_ch = raw_banded_chase(this, t_out, ins, stride)
+    for name, x, y in zip(("scores", "states", "tblast", "ops"), t_ch, o_ch):
+        if not bit_equal(x, y):
+            fail(f"against oracle {tag}: banded_nw_chase {name} differs "
+                 "from the other checkout's")
+    chase = in_turns({"other": lambda: raw_banded_chase(lib, o_out, ins,
+                                                          stride),
+                      "this": lambda: raw_banded_chase(this, t_out, ins,
+                                                         stride)}, reps)
+    print(f"against oracle {tag}: kernels alone, ms, banded_nw_fwd "
+          f"{json.dumps(fwd)}, banded_nw_chase (each on its own tb layout) "
+          f"{json.dumps(chase)}; bit-equal; clocks {clocks()}", flush=True)
+    del o_out, o_ch
+    torch.cuda.empty_cache()
+    return fwd, chase
+
+
+def check_banded(tag, pairs, radius, ap, dev, reps, other=None):
     """The device oracle's kernels against their plain versions on
-    `pairs`; returns a dict of times and errors."""
+    `pairs`: banded_nw_fwd through its wrapper and alone, banded_nw_chase;
+    with `other` (load_other's) both against that checkout's.  Returns a
+    dict of times and errors."""
     import numpy as np
     import torch
+    from usearch12_tpu_torch import _build
     from usearch12_tpu_torch.ops import banded_nw as bn
     from usearch12_tpu_torch.ops import wavefront_nw as wnw
     batch = bn.pack_pairs(pairs, True, radius)
@@ -400,6 +515,16 @@ def check_banded(tag, pairs, radius, ap, dev, reps):
     fwd_err = max(float((fwd[1] - fwd_plain[1]).abs().max()),
                   float((fwd[2] - fwd_plain[2]).abs().max()))
     del fwd_plain
+    # the kernel alone, outputs allocated beforehand
+    ins = (a_let, b_let, *geo, gp, match, mismatch, width)
+    lib = _build.load_library()
+    cells_a_part = int(lib.banded_nw_fwd_cells(width))
+    outs = banded_outs(2, ins)
+    alone, _ = cuda_ms(lambda: raw_banded_fwd(lib, ins, outs), reps)
+    for name, x, y in zip(("tb", "mlast", "dlb"), outs, fwd):
+        if not bit_equal(x, y):
+            fail(f"oracle {tag}: banded_nw_fwd alone differs in {name}")
+    del outs
     tb, mlast, dlb = fwd
     ch_ms, ch = cuda_ms(lambda: bn.banded_nw_chase(tb, mlast, dlb, *geo,
                                                    gp), reps)
@@ -424,18 +549,24 @@ def check_banded(tag, pairs, radius, ap, dev, reps):
                     for k in range(4)))
     ch_b = bound(steps + nbytes_of(mlast, dlb, *geo, gp, *ch),
                  3 * int(batch.lb.sum()) + 4 * steps)
-    print(f"oracle {tag}: {len(pairs)} pairs, {cells} cells; banded_nw_fwd "
-          f"{fwd_ms:.3f} ms ({cells / fwd_ms / 1e6:.2f} Gcells/s, bound "
-          f"{fwd_b[0]:.4f} ms by {fwd_b[1]}), plain "
-          f"{fwd_plain_ms:.1f} ms; banded_nw_chase {ch_ms:.3f} ms "
-          f"({cells / ch_ms / 1e6:.2f} Gcells/s, bound {ch_b[0]:.4f} ms by "
-          f"{ch_b[1]}), plain {ch_plain_ms:.1f} ms; bit-equal to plain",
-          flush=True)
-    return {"fwd_ms": fwd_ms, "fwd_plain_ms": fwd_plain_ms,
-            "fwd_err": fwd_err, "fwd_bound": fwd_b,
-            "chase_ms": ch_ms, "chase_plain_ms": ch_plain_ms,
-            "chase_bound": ch_b,
-            "chase_err": float((ch[0] - ch_plain[0]).abs().max())}
+    print(f"oracle {tag}: {len(pairs)} pairs, {cells} cells, band "
+          f"{width}; banded_nw_fwd {fwd_ms:.3f} ms through the wrapper, "
+          f"{alone:.3f} ms alone ({cells / alone / 1e6:.2f} Gcells/s, "
+          f"bound {fwd_b[0]:.4f} ms by {fwd_b[1]}; {cells_a_part} cells a "
+          f"part), plain {fwd_plain_ms:.1f} ms; banded_nw_chase "
+          f"{ch_ms:.3f} ms ({cells / ch_ms / 1e6:.2f} Gcells/s, bound "
+          f"{ch_b[0]:.4f} ms by "
+          f"{ch_b[1]}), plain {ch_plain_ms:.1f} ms; bit-equal to plain; "
+          f"clocks {clocks()}", flush=True)
+    out = {"fwd_ms": fwd_ms, "fwd_kernel_ms": alone,
+           "fwd_plain_ms": fwd_plain_ms, "fwd_err": fwd_err,
+           "fwd_bound": fwd_b, "chase_ms": ch_ms,
+           "chase_plain_ms": ch_plain_ms, "chase_bound": ch_b,
+           "chase_err": float((ch[0] - ch_plain[0]).abs().max())}
+    del fwd, tb, ch, ch_plain
+    if other is not None:
+        compare_banded(tag, ins, other, reps)
+    return out
 
 
 def time_slice_launches(seen, other=None):
@@ -525,22 +656,26 @@ def merged_by_gap_penalties(targs):
 
 
 def load_other(src_dir):
-    """Another checkout's csrc/wavefront_fwd.cu, wavefront_trace.cu and
-    sintax_boot.cu, each built with this tree's nvcc flags into a library
-    of its own (one nvcc per source, started together).  Returns
-    {"fwd": library, "trace": (library, whether its wavefront_trace_launch
-    takes this tree's arguments: it does if the library exports
-    wavefront_trace_interface() == 2, and takes the one-thread-a-pair
-    entry point's if it exports no version), "sintax": library or None}.
-    Its wavefront_fwd_launch must take this tree's arguments (with the
-    pair order)."""
+    """Another checkout's csrc/wavefront_fwd.cu, wavefront_trace.cu,
+    banded_nw.cu and sintax_boot.cu, each built with this tree's nvcc
+    flags into a library of its own (one nvcc per source, started
+    together).  Returns {"fwd": library, "trace": (library, whether its
+    wavefront_trace_launch takes this tree's arguments: it does if the
+    library exports wavefront_trace_interface() == 2, and takes the
+    one-thread-a-pair entry point's if it exports no version), "banded":
+    (library, its banded_nw_interface(), 1 where it exports none: tb
+    pair-minor), "hist": library (its
+    sintax_pick_hist_launch, whose arguments have not changed)}.  Its
+    wavefront_fwd_launch must take this tree's arguments (with the pair
+    order)."""
     import ctypes
     from usearch12_tpu_torch import _build
     csrc = os.path.join(os.path.abspath(src_dir), "usearch12_tpu_torch",
                         "csrc")
-    out_dir = _build.BUILD_DIR / "against"
+    out_dir = _build.BUILD_DIR / "against" / os.path.basename(
+        os.path.abspath(src_dir))
     out_dir.mkdir(parents=True, exist_ok=True)
-    names = ("wavefront_fwd", "wavefront_trace", "sintax_boot")
+    names = ("wavefront_fwd", "wavefront_trace", "banded_nw", "sintax_boot")
     t0 = time.perf_counter()
     procs = {n: subprocess.Popen(
         [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
@@ -571,18 +706,28 @@ def load_other(src_dir):
     else:
         trace.argtypes = [vp, vp, vp, i32, vp, vp, vp, vp, vp, vp, i32, vp,
                           vp, i32, vp, vp]
-    sx = libs["sintax_boot"]
-    if hasattr(sx, "sintax_boot_select_launch"):
-        sx.sintax_boot_select_launch.restype = i32
-        sx.sintax_boot_select_launch.argtypes = [vp, i32, vp, i32, i32, vp,
-                                                 vp, vp]
-    else:
-        sx = None
+    bnw = libs["banded_nw"]
+    b_version = 1
+    if hasattr(bnw, "banded_nw_interface"):
+        bnw.banded_nw_interface.restype = i32
+        b_version = bnw.banded_nw_interface()
+    if b_version not in (1, 2):
+        fail(f"{csrc}/banded_nw.cu: unknown interface {b_version}")
+    bnw.banded_nw_fwd_launch.restype = i32
+    bnw.banded_nw_fwd_launch.argtypes = this.banded_nw_fwd_launch.argtypes
+    bnw.banded_nw_chase_launch.restype = i32
+    bnw.banded_nw_chase_launch.argtypes = \
+        this.banded_nw_chase_launch.argtypes
+    hist = libs["sintax_boot"]
+    hist.sintax_pick_hist_launch.restype = i32
+    hist.sintax_pick_hist_launch.argtypes = \
+        this.sintax_pick_hist_launch.argtypes
     print(f"against: {csrc} built in {time.perf_counter() - t0:.1f} s; "
-          f"wavefront_trace interface {version}, sintax_boot_select "
-          f"{'present' if sx else 'absent'}", flush=True)
+          f"wavefront_trace interface {version}, banded_nw interface "
+          f"{b_version}", flush=True)
     return {"fwd": libs["wavefront_fwd"],
-            "trace": (libs["wavefront_trace"], trace_new), "sintax": sx}
+            "trace": (libs["wavefront_trace"], trace_new),
+            "banded": (bnw, b_version), "hist": hist}
 
 
 def raw_trace(lib, new, args, stride, plan):
@@ -646,9 +791,7 @@ def compare_trace(tag, launches, other):
             if not bit_equal(x, y):
                 fail(f"against {tag}: wavefront_trace {name} differs from "
                      "the other checkout's")
-    times = {name: [] for name in runs}
-    for name in ("other", "this", "this", "other"):
-        times[name].append(cuda_ms(runs[name], 1)[0])
+    times = in_turns(runs, 1)
     print(f"against {tag}: wavefront_trace over {len(launches)} launches, "
           f"ms {json.dumps(times)}; bit-equal; clocks {clocks()}", flush=True)
     return times
@@ -707,10 +850,8 @@ def compare_fwd(tag, launches, other):
                     fail(f"against {tag}: wavefront_fwd {name} differs from "
                          "the other checkout's")
         del want, got
-    times = {name: [] for name in runs}
-    for name in ("other", "this", "this, launch order", "this, launch order",
-                 "this", "other"):
-        times[name].append(cuda_ms(runs[name], 1)[0])
+    times = in_turns(runs, 1, ("other", "this", "this, launch order",
+                               "this, launch order", "this", "other"))
     print(f"against {tag}: wavefront_fwd over {len(launches)} launches, ms "
           f"{json.dumps(times)}; bit-equal; clocks {clocks()}", flush=True)
     return times
@@ -823,45 +964,51 @@ def sintax_chunks(dbf, qf, d):
     return engine, chunks
 
 
-def sintax_route(engine, P, words_d, nuw_d, rr_d, dtype, select):
-    """The route the fused kernel replaced: the gather, mask and cast of
-    the incidence rows into `dtype`, the library bmm into U, and
-    select(U, rr)."""
-    from usearch12_tpu_torch.ops import sintax_boot as sb
-    mq = sb.gather_rows(engine.w_mat, words_d, nuw_d, dtype)
-    U = sb.boot_product(P, mq)
-    del mq
-    return select(U, rr_d)
-
-
-def other_select(lib):
-    """select(U, rr) through another checkout's sintax_boot_select_launch."""
-    import torch
-
-    def select(U, rr):
-        winner = torch.empty(rr.shape, dtype=torch.int32, device=U.device)
-        top = torch.empty(rr.shape, dtype=torch.int32, device=U.device)
-        err = lib.sintax_boot_select_launch(
-            U.data_ptr(), 1 if U.dtype == torch.float16 else 0,
-            rr.data_ptr(), rr.numel(), U.shape[2], winner.data_ptr(),
-            top.data_ptr(), torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            fail(f"sintax_boot_select_launch returned CUDA error {err}")
-        return winner, top
-    return select
-
-
-def check_sintax_kernels(engine, chunks, dev, other_sx=None):
-    """sintax_pick_hist and the fused count-and-select kernel
-    (sintax_boot_count_select) bit for bit against their plain versions
-    on full chunks, the route the fused kernel replaced (gather, mask and
-    cast; bmm) timed beside it, and with `other_sx` (another checkout's
-    library with its sintax_boot_select kernel) that checkout's whole
-    route timed against the fused kernel in turns other, this, this,
-    other.  Returns times, bounds and errors of the m = 32 chunk and the
-    worst errors."""
+def raw_pick_hist(lib, args, P):
+    """One launch of a sintax_pick_hist_launch entry point on pick_hist's
+    arguments into P, allocated beforehand."""
     import torch
     from usearch12_tpu_torch.ops import sintax_boot as sb
+    nuw, m, stream, boots, uwmax, dtype = args
+    err = lib.sintax_pick_hist_launch(
+        nuw.data_ptr(), m.data_ptr(), stream.data_ptr(), stream.numel(),
+        boots, nuw.numel(), uwmax, sb._DTYPE_CODE[dtype], P.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        fail(f"sintax_pick_hist_launch returned CUDA error {err}")
+    return P
+
+
+def flat_picks(nuw, m, stream, boots, uwmax):
+    """The chunk's picks as flat indices (j * boots + b) * uwmax + slot of
+    P, one for each pick k < m of each boot (pick_hist_plain's
+    positions), for torch.bincount."""
+    import torch
+    from usearch12_tpu_torch.ops import sintax_boot as sb
+    dev, n = nuw.device, stream.numel()
+    m64 = m.to(torch.int64)[:, None, None]
+    b = torch.arange(boots, device=dev)[None, :, None]
+    k = torch.arange(n // boots, device=dev)[None, None, :]
+    slot = sb._u32(stream)[(b * m64 + k).clamp(0, n - 1)] % \
+        nuw.to(torch.int64).clamp(min=1)[:, None, None]
+    j = torch.arange(nuw.numel(), device=dev)[:, None, None]
+    flat = (j * boots + b) * uwmax + slot
+    return flat[(k < m64).expand(flat.shape)]
+
+
+def check_sintax_kernels(engine, chunks, dev, other_hist=None):
+    """sintax_pick_hist (through its wrapper and alone) and the fused
+    count-and-select kernel (sintax_boot_count_select) bit for bit against
+    their plain versions on full chunks, torch.bincount over the picks
+    timed beside the histogram and the route the fused kernel replaced
+    (gather, mask and cast; bmm) beside that kernel; with `other_hist`
+    (another checkout's library) its sintax_pick_hist against this tree's,
+    kernels alone, in turns other, this, this, other.  Returns times,
+    bounds and errors of the m = 32 chunk and the worst errors."""
+    import torch
+    from usearch12_tpu_torch import _build
+    from usearch12_tpu_torch.ops import sintax_boot as sb
+    lib = _build.load_library()
     out = {"hist_err": 0.0, "select_err": 0.0}
     for m_val, words, nuw, m, stream, rr in chunks:
         words_d, nuw_d, m_d, stream_d, rr_d = (
@@ -870,13 +1017,34 @@ def check_sintax_kernels(engine, chunks, dev, other_sx=None):
         dtype = sb.product_dtype(dev, m_val, engine.inc_absmax)
         args = (nuw_d, m_d, stream_d, engine.B, words.shape[1], dtype)
         hist_ms, P = cuda_ms(lambda: sb.pick_hist(*args), 5)
+        P_alone = torch.empty_like(P)
+        alone_ms, _ = cuda_ms(lambda: raw_pick_hist(lib, args, P_alone), 20)
         # 2 operations per pick (the fold and the add), B x m picks a job
         hist_b = bound(nbytes_of(nuw_d, m_d, stream_d, P),
                        2 * engine.B * int(m.astype("int64").sum()))
         hist_plain_ms, P_plain = cuda_ms(lambda: sb.pick_hist_plain(*args), 1)
-        if not bit_equal(P, P_plain):
+        if not (bit_equal(P, P_plain) and bit_equal(P_alone, P_plain)):
             fail(f"sintax m={m_val}: sintax_pick_hist differs from its "
                  "plain version")
+        # the library's histogram: one bincount over the flat picks
+        flat = flat_picks(nuw_d, m_d, stream_d, engine.B, words.shape[1])
+        lib_ms, counts = cuda_ms(lambda: torch.bincount(
+            flat, minlength=P.numel()), 20)
+        if not torch.equal(counts, P.to(torch.int64).flatten()):
+            fail(f"sintax m={m_val}: torch.bincount's counts differ from "
+                 "sintax_pick_hist's")
+        del flat, counts
+        hist_turns = ""
+        if other_hist is not None:
+            P_other = raw_pick_hist(other_hist, args, torch.empty_like(P))
+            if not bit_equal(P_other, P):
+                fail(f"against sintax m={m_val}: sintax_pick_hist differs "
+                     "from the other checkout's")
+            times = in_turns({
+                "other": lambda: raw_pick_hist(other_hist, args, P_other),
+                "this": lambda: raw_pick_hist(lib, args, P_alone)}, 20)
+            hist_turns = (f"; against: sintax_pick_hist alone, ms "
+                          f"{json.dumps(times)}")
         cargs = (P, words_d, nuw_d, engine.w_mat, rr_d)
         sel_ms, sel = cuda_ms(lambda: sb.boot_count_select(*cargs), 5)
         # the live incidence rows (nuw x T bytes a job), P, the words, rr
@@ -909,23 +1077,6 @@ def check_sintax_kernels(engine, chunks, dev, other_sx=None):
                 fail(f"sintax m={m_val}: sintax_boot_count_select {name} "
                      "differs from the select over U")
         del U
-        turns = ""
-        if other_sx is not None:
-            runs = {"other": lambda: sintax_route(
-                        engine, P_r, words_d, nuw_d, rr_d, rdt,
-                        other_select(other_sx)),
-                    "this": lambda: sb.boot_count_select(*cargs)}
-            for name, x, y in zip(("winner", "top"), runs["other"](), sel):
-                if not bit_equal(x, y):
-                    fail(f"against sintax m={m_val}: {name} differs from "
-                         "the other checkout's route")
-            times = {name: [] for name in runs}
-            for name in ("other", "this", "this", "other"):
-                times[name].append(cuda_ms(runs[name], 1)[0])
-            turns = (f"; against: the other checkout's route (gather, bmm, "
-                     f"its sintax_boot_select) against "
-                     f"sintax_boot_count_select, ms {json.dumps(times)}")
-            torch.cuda.empty_cache()
         top = int(sel[1].max())
         if m_val == 0 and top != 0:
             fail("sintax m=0: non-zero top")
@@ -935,18 +1086,21 @@ def check_sintax_kernels(engine, chunks, dev, other_sx=None):
             (x - y).abs().max() for x, y in zip(sel, sel_plain))))
         print(f"sintax kernels m={m_val}: {tuple(P.shape)} P of {dtype}, "
               f"{T} targets, {live} live word rows; sintax_pick_hist "
-              f"{hist_ms:.3f} ms, plain {hist_plain_ms:.3f} ms, bound "
-              f"{hist_b[0]:.4f} ms by {hist_b[1]}; sintax_boot_count_select "
+              f"{hist_ms:.3f} ms through the wrapper, {alone_ms:.4f} ms "
+              f"alone, torch.bincount {lib_ms:.4f} ms, plain "
+              f"{hist_plain_ms:.3f} ms, bound {hist_b[0]:.4f} ms by "
+              f"{hist_b[1]}{hist_turns}; sintax_boot_count_select "
               f"{sel_ms:.3f} ms, bound {sel_b[0]:.4f} ms by {sel_b[1]}, "
               f"plain {sel_plain_ms:.3f} ms; the route it replaced "
               f"({rdt}): gather {gather_ms:.3f} ms, product "
-              f"{prod_ms:.3f} ms{turns}; top max {top}; bit-equal to "
-              f"plain; clocks {clocks()}", flush=True)
+              f"{prod_ms:.3f} ms; top max {top}; bit-equal to plain; "
+              f"clocks {clocks()}", flush=True)
         if m_val == 32:
-            out.update(hist_ms=hist_ms, hist_plain_ms=hist_plain_ms,
+            out.update(hist_ms=hist_ms, hist_kernel_ms=alone_ms,
+                       hist_plain_ms=hist_plain_ms, hist_lib_ms=lib_ms,
                        sel_ms=sel_ms, sel_plain_ms=sel_plain_ms,
                        hist_bound=hist_b, sel_bound=sel_b)
-        del P, P_r, P_plain, sel_plain
+        del P, P_r, P_plain, P_alone, sel_plain
         torch.cuda.empty_cache()
     return out
 
@@ -1024,7 +1178,7 @@ def gate_crossover(gate):
     return float("nan")
 
 
-def phase_sintax(d, dev, phase_done, other_sx=None):
+def phase_sintax(d, dev, phase_done, other_hist=None):
     """Phases 6 and 7 in directory d; returns the kernel check's numbers
     and the launch counts of the main run."""
     import torch
@@ -1049,7 +1203,7 @@ def phase_sintax(d, dev, phase_done, other_sx=None):
           f"{tuple(engine.w_mat.shape)} int8, max {engine.inc_absmax}, "
           f"{posts} postings, the build's index_put_ bound "
           f"{build_b[0]:.4f} ms by {build_b[1]}", flush=True)
-    sx = check_sintax_kernels(engine, chunks, dev, other_sx)
+    sx = check_sintax_kernels(engine, chunks, dev, other_hist)
     del engine, chunks
     torch.cuda.empty_cache()
     phase_done(6, t_phase)
@@ -1214,10 +1368,10 @@ def main():
     # 4. the device oracle: its kernels against their plain versions, then
     # BandedNWDevice judging the hole DP kernels on every pair of shape (a)
     t_phase = time.perf_counter()
-    orc = check_banded("250nt", pairs_a, 16, ap, dev, 5)
-    orc_wide = check_banded(
-        "1kb", balanced_indel_pairs(np.random.default_rng(8), 2048, 1000),
-        62, ap_nd, dev, 3)
+    other_bnw = None if other is None else other["banded"]
+    orc = check_banded("250nt", pairs_a, 16, ap, dev, 5, other_bnw)
+    pairs_kb = balanced_indel_pairs(np.random.default_rng(8), 2048, 1000)
+    orc_wide = check_banded("1kb", pairs_kb, 62, ap_nd, dev, 3, other_bnw)
     bn.banded_nw_fwd.launches = 0
     bn.banded_nw_chase.launches = 0
     t0 = time.perf_counter()
@@ -1241,6 +1395,24 @@ def main():
     if min(orc_launches.values()) <= 0:
         fail(f"a kernel was not launched on the oracle path: {orc_launches}")
     del pairs_a, s_orc, p_orc, s_wave, p_wave
+    # a second judge: the 2,048 pairs of 1 kb, radius 62, non-dyadic
+    t0 = time.perf_counter()
+    s_orc, p_orc = bn.BandedNWDevice(ap_nd, dev).align_device(pairs_kb, 62)
+    torch.cuda.synchronize()
+    t_orc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s_wave, p_wave = wnw.TorchWaveAligner(ap_nd, dev).align(pairs_kb, 62)
+    t_wave = time.perf_counter() - t0
+    n_diff = int(sum(1 for k in range(len(pairs_kb))
+                     if s_orc[k] != s_wave[k] or p_orc[k] != p_wave[k]))
+    print(f"oracle judge: {len(pairs_kb)} pairs of 1 kb, radius 62, "
+          f"non-dyadic penalties; BandedNWDevice.align_device {t_orc:.2f} s, "
+          f"TorchWaveAligner.align {t_wave:.2f} s; {n_diff} pairs differ; "
+          f"phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    if n_diff:
+        fail(f"BandedNWDevice and TorchWaveAligner differ on {n_diff} pairs "
+             "of 1 kb")
+    del pairs_kb, s_orc, p_orc, s_wave, p_wave
     phase_done(4, t_phase)
 
     # 5. the slice: usearch_global on the long-contig workload, on the
@@ -1355,19 +1527,21 @@ def main():
 
     with tempfile.TemporaryDirectory() as d:
         sx, sx_launches = phase_sintax(
-            d, dev, phase_done, None if other is None else other["sintax"])
+            d, dev, phase_done, None if other is None else other["hist"])
 
     # 8. the cost model's cold-start constants on this card
     t_phase = time.perf_counter()
     perf_constants(dev, ap, dev_rate)
     phase_done(8, t_phase)
 
-    def row(name, source, replaces, n, err, ms, plain_ms, bnd):
+    def row(name, source, replaces, n, err, ms, plain_ms, bnd,
+            library_ms=None, kernel_ms=None):
         return {"name": name, "route": "cuda",
                 "source": f"usearch12_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": n, "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
-                "bound_by": bnd[1], "library_ms": None}
+                "bound_by": bnd[1], "library_ms": library_ms,
+                "kernel_ms": kernel_ms}
 
     print(json.dumps({"kernels": [
         row("wavefront_fwd", "wavefront_fwd.cu",
@@ -1383,7 +1557,8 @@ def main():
             "usearch12_tpu/ops/banded_nw.py:122",
             orc_launches["banded_nw_fwd"],
             max(orc["fwd_err"], orc_wide["fwd_err"]), orc["fwd_ms"],
-            orc["fwd_plain_ms"], orc["fwd_bound"]),
+            orc["fwd_plain_ms"], orc["fwd_bound"],
+            kernel_ms=orc["fwd_kernel_ms"]),
         row("banded_nw_chase", "banded_nw.cu",
             "usearch12_tpu/ops/banded_nw.py:569",
             orc_launches["banded_nw_chase"],
@@ -1392,7 +1567,8 @@ def main():
         row("sintax_pick_hist", "sintax_boot.cu",
             "usearch12_tpu/amplicon/sintax_device.py:132",
             sx_launches["sintax_pick_hist"], sx["hist_err"], sx["hist_ms"],
-            sx["hist_plain_ms"], sx["hist_bound"]),
+            sx["hist_plain_ms"], sx["hist_bound"], sx["hist_lib_ms"],
+            sx["hist_kernel_ms"]),
         row("sintax_boot_count_select", "sintax_boot.cu",
             "usearch12_tpu/amplicon/sintax_device.py:143",
             sx_launches["sintax_boot_count_select"], sx["select_err"],

@@ -3,6 +3,9 @@ where BandedNWDevice's kernels run their plain PyTorch versions, against
 the JAX package's judges: align/oracle.py:banded_nw and the host C kernel
 nw_band.  Tolerance 0: scores equal as float32, paths equal as strings."""
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +22,19 @@ CPU = torch.device("cpu")
 CONV = np.frombuffer(b"ACGTN", np.uint8)
 DYADIC = (-10.0, -1.0, -0.5, -0.5)
 NON_DYADIC = (-10.3, -1.1, -0.7, -0.4)
+# banded_nw_fwd's kernel constants, read from its source so that the
+# schedule model below follows the kernel: the traceback rows copied out
+# at a time, and the widest band at 6 cells a part (4 above it)
+_CU = (Path(bn.__file__).resolve().parents[1] / "csrc" /
+       "banded_nw.cu").read_text()
+FLUSH_ROWS = int(re.search(r"#define BNW_FLUSH (\d+)", _CU)[1])
+CV6_MAX = int(re.search(r"#define BNW_CV6_MAX (\d+)", _CU)[1])
+
+
+def kernel_cells(width):
+    """The cells a part banded_nw_fwd's kernel takes at launch width
+    `width` (csrc/banded_nw.cu banded_nw_fwd_cells)."""
+    return 4 if width > CV6_MAX else 6
 
 
 def rand_pairs(rng, n, lmin, lmax, dl=0, n_rate=0.0, lower=0.0):
@@ -156,8 +172,8 @@ def test_run_batch_without_traceback():
     batch = bn.pack_pairs(pairs, True, 16)
     s1, st1, tb1, tl1 = dev.run_batch(batch)
     s2, st2, tb2, tl2 = dev.run_batch(batch, with_traceback=False)
-    assert tb2 is None and tb1.shape == (batch.la.max(), batch.bw.max() + 1,
-                                         len(pairs))
+    assert tb2 is None and tb1.shape == (len(pairs), batch.la.max(),
+                                         batch.bw.max() + 1)
     assert np.array_equal(s1, s2) and np.array_equal(st1, st2)
     assert np.array_equal(tl1, tl2) and st1.dtype == np.dtype("U1")
 
@@ -225,3 +241,278 @@ def test_wrappers_reject_bad_inputs():
                            gp)
     assert bn.banded_nw_fwd.launches == 0
     assert bn.banded_nw_chase.launches == 0
+
+
+def fwd_geometry(width, cells):
+    """(lanes a pair L, pairs a warp G, traceback ring rows R) of
+    banded_nw_fwd's kernel at launch width `width` and `cells` cells a
+    part (csrc/banded_nw.cu bnw_fwd_launch)."""
+    lanes = -(-width // (2 * cells))
+    assert lanes <= 32
+    ring = -(-(FLUSH_ROWS + lanes - 1) // FLUSH_ROWS) * FLUSH_ROWS
+    return lanes, 32 // lanes, ring
+
+
+def fwd_schedule_model(batch, gp, match, mismatch, cells):
+    """banded_nw_fwd's kernel schedule (csrc/banded_nw.cu), step by step
+    and lane by lane, in numpy float32, batched over pairs: groups of L
+    lanes a pair and G pairs a warp; lane l does row s - l at super-step
+    s, its part 2l (slots 2l*cells ..) at step 2s and part 2l + 1 at step
+    2s + 1; the I state entering part 2l and the up slot and Drow[LB] of
+    part 2l + 1 come from the neighbouring lanes as shuffles read them;
+    the Drow[LB] chain carried by the part that holds k_lb; the rows
+    staged in a ring of R rows and copied out every FLUSH_ROWS rows.
+    Asserts that every value a cell reads (diagonal, up, the I state, the
+    chain) was written for the row before (or, for the I state, this row)
+    at an earlier step, and that a flushed ring row holds the row it
+    should.  Returns (tb (P, amax, W + 1), mlast (P, W), dlb (P,))."""
+    f32 = np.float32
+    P, amax = batch.a_let.shape
+    la, lb, dlo, bw = (x.astype(np.int64) for x in (batch.la, batch.lb,
+                                                     batch.dlo, batch.bw))
+    W = int(bw.max())
+    L, G, R = fwd_geometry(W, cells)
+    NS = 2 * L * cells                       # slots of a group's parts
+    neg = f32(bn.NEG)
+    g = [f32(x) for x in np.asarray(gp[:12])]
+    (open_a, open_b, ext_a, ext_b, l_open_a, l_open_b, _r_open_a, r_open_b,
+     l_ext_a, l_ext_b, _r_ext_a, r_ext_b) = g
+    match, mismatch = f32(match), f32(mismatch)
+    rows = np.arange(P)
+    M = np.full((P, NS + 1), neg, f32)       # slot NS: past the last lane
+    D = np.full((P, NS + 1), neg, f32)
+    M[rows, la - dlo] = 0
+    w_row = np.full((P, NS + 1), -1)         # row and step of each slot's
+    w_step = np.full((P, NS + 1), -1)        # last write
+    dlb = np.full((P, L), neg, f32)          # each lane's chain register
+    dlb_row = np.full((P, L), -1)
+    i_out = np.full((P, L), neg, f32)        # I state after part 2l + 1
+    i_out_row = np.full((P, L), -1)
+    i_out_step = np.full((P, L), -1)
+    ring = np.zeros((P, R, W + 1), np.uint8)
+    ring_tag = np.full((P, R), -1)
+    tb = np.full((P, amax, W + 1), 0xEE, np.uint8)  # every byte is written
+    mlast = np.full((P, W), np.nan, f32)
+    dlb_out = np.full(P, np.nan, f32)
+    la_max = np.zeros(P, np.int64)
+    for w0 in range(0, P, G):
+        la_max[w0:w0 + G] = la[w0:w0 + G].max()
+    s_end = la_max + L - 2
+    n_chunks = -(-amax // FLUSH_ROWS)
+    flushed = np.zeros(P, np.int64)
+
+    def flush(q, live):
+        r0 = q * FLUSH_ROWS
+        for r in range(r0, min(r0 + FLUSH_ROWS, amax)):
+            done = live & (r < la)
+            assert (ring_tag[done, r % R] == r).all()
+            tb[done, r] = ring[done, r % R]
+            tb[live & (r >= la), r] = 0
+        flushed[live] += 1
+
+    def part(s, l, v, i0, up, prev, prev_row):
+        """Part v of lane l at super-step s; returns the I state after
+        it."""
+        i = s - l
+        t = 2 * s + (v - 2 * l)
+        act = (i >= 0) & (i < la)
+        if not act.any():
+            return i0
+        jbase = dlo + i - la
+        kstart = np.maximum(0, -jbase)
+        kend = np.minimum(lb - jbase, bw)
+        ring_tag[act, i % R] = i
+        k_lb = lb - dlo - i + la
+        own = act & (np.minimum(k_lb, NS - 1) // cells == v)
+        if own.any():
+            assert (prev_row[own] == i - 1).all()
+            held = own & (k_lb < bw)
+            assert (k_lb[held] // cells == v).all()
+            assert (w_row[held, k_lb[held]] <= i - 1).all()
+            assert (w_step[held, k_lb[held]] < t).all()
+            m_end = np.where(held, M[rows, np.clip(k_lb, 0, NS)], neg)
+            md_lb = m_end + r_open_b
+            de_lb = prev + r_ext_b
+            take_lb = md_lb >= de_lb
+            dlb[own, l] = np.where(take_lb, md_lb, de_lb)[own]
+            dlb_row[own, l] = i
+            ring[own, i % R, W] = np.where(take_lb, bn.TB_MD, 0)[own]
+            last = own & (i == la - 1)
+            dlb_out[last] = dlb[last, l]
+        ca = batch.a_let[:, min(i, amax - 1)].astype(np.int64)
+        oa, ea = (l_open_a, l_ext_a) if i == 0 else (open_a, ext_a)
+        for c in range(cells):
+            k = v * cells + c
+            valid = act & (k >= kstart) & (k < kend)
+            # the up slot: in the part, or the next part's first (own
+            # registers for part 2l, lane l + 1's shuffled for 2l + 1)
+            ku = k + 1 if c + 1 < cells or up is None else None
+            if valid.any():
+                for kk in (k, k + 1):
+                    assert (w_row[valid, kk] <= i - 1).all()
+                    assert (w_step[valid, kk] < t).all()
+            j = jbase + k
+            cb = batch.b_let[rows, np.clip(j, 0, batch.b_let.shape[1] - 1)]
+            cb = cb.astype(np.int64)
+            sub = np.where((ca < 4) & (cb < 4),
+                           np.where(ca == cb, match, mismatch), f32(0))
+            ob = np.where(j == 0, l_open_b, open_b)
+            eb = np.where(j == 0, l_ext_b, ext_b)
+            m_diag = M[:, k].copy()
+            d_up = D[:, ku] if ku is not None else up
+            take_d = d_up > m_diag
+            xm = np.where(take_d, d_up, m_diag)
+            take_i = i0 > xm
+            xm = np.where(take_i, i0, xm)
+            md = m_diag + ob
+            de = d_up + eb
+            take_open = md >= de
+            mi = m_diag + oa
+            ie = i0 + ea
+            take_iopen = mi >= ie
+            M[valid, k] = (xm + sub)[valid]
+            D[valid, k] = np.where(take_open, md, de)[valid]
+            i0 = np.where(valid, np.where(take_iopen, mi, ie), i0)
+            w_row[valid, k] = i
+            w_step[valid, k] = t
+            bits = (np.where(take_i, bn.TB_IM, np.where(take_d, bn.TB_DM, 0))
+                    | np.where(take_open, bn.TB_MD, 0)
+                    | np.where(take_iopen, bn.TB_MI, 0))
+            if k < W:
+                ring[act, i % R, k] = np.where(valid, bits, 0)[act]
+        last = act & (i == la - 1)
+        for c in range(cells):
+            k = v * cells + c
+            if k < W:
+                mlast[last, k] = np.where(k < kend, M[:, k], neg)[last]
+        return i0
+
+    for s in range(int(s_end.max()) + 1):
+        # shuffle up: the I state each lane left after its last row
+        i_in = np.concatenate([np.full((P, 1), neg, f32), i_out[:, :-1]], 1)
+        i_in_row = np.concatenate([np.full((P, 1), -1), i_out_row[:, :-1]],
+                                  1)
+        i_in_step = np.concatenate([np.full((P, 1), -1), i_out_step[:, :-1]],
+                                   1)
+        mid = []
+        for l in range(L):
+            i = s - l
+            act = (i >= 0) & (i < la)
+            if l > 0:
+                assert (i_in_row[act, l] == i).all()
+                assert (i_in_step[act, l] < 2 * s).all()
+            mid.append(part(s, l, 2 * l, i_in[:, l], None, dlb[:, l],
+                            dlb_row[:, l]))
+        # shuffle down: lane l + 1's first D slot and chain register
+        up = np.concatenate([D[:, 2 * cells:NS:2 * cells],
+                             np.full((P, 1), neg, f32)], 1)
+        d_right = np.concatenate([dlb[:, 1:], np.full((P, 1), neg, f32)], 1)
+        d_right_row = np.concatenate([dlb_row[:, 1:],
+                                      np.full((P, 1), -1)], 1)
+        for l in range(L):
+            i = s - l
+            act = (i >= 0) & (i < la)
+            k_lb = lb - dlo - i + la
+            from_right = np.minimum(k_lb + 1, NS - 1) // cells == 2 * l + 2
+            prev = np.where(from_right, d_right[:, l], dlb[:, l])
+            prev_row = np.where(from_right, d_right_row[:, l], dlb_row[:, l])
+            out = part(s, l, 2 * l + 1, mid[l], up[:, l], prev, prev_row)
+            i_out[act, l] = out[act]
+            i_out_row[act, l] = i
+            i_out_step[act, l] = 2 * s + 1
+        q = s - (L - 2)
+        if q > 0 and q % FLUSH_ROWS == 0 and q // FLUSH_ROWS <= n_chunks:
+            flush(q // FLUSH_ROWS - 1, s <= s_end)
+    for q in range(n_chunks):
+        flush(q, flushed == q)
+    assert (flushed == n_chunks).all()
+    return tb, mlast, dlb_out
+
+
+def band_pairs(rng, n, bw, lmin=20, lmax=160):
+    """n (a, b, dlo, dhi) pairs whose band is exactly bw wide, la > lb,
+    la < lb and la == lb in turns, the band placed at random where it
+    holds the start and end cells."""
+    pairs = []
+    for k in range(n):
+        la = int(rng.integers(max(lmin, bw), lmax))
+        d = 0 if bw == 1 else int(rng.integers(1, min(bw, 12)))
+        lb = la + (d, -d, 0)[k % 3]
+        lo_min = max(1, max(la, lb) - bw + 1)
+        dlo = int(rng.integers(lo_min, min(la, lb) + 1))
+        a = CONV[rng.integers(0, 4, la)]
+        b = np.resize(a, lb).copy()
+        flip = rng.random(lb) < 0.12
+        b[flip] = CONV[rng.integers(0, 5, int(flip.sum()))]
+        pairs.append((a, b, dlo, dlo + bw - 1))
+    return pairs
+
+
+def assert_model_matches(pairs, radius, ap, cells=None):
+    """The schedule model's (tb, mlast, dlb) bit-equal to
+    banded_nw_fwd_plain's; its scores and paths (through the chase) equal
+    to the oracle's."""
+    batch = bn.pack_pairs(pairs, True, radius)
+    gp = gap_params(ap)
+    match, mismatch = bn.match_mismatch(ap)
+    W = int(batch.bw.max())
+    cells = kernel_cells(W) if cells is None else cells
+    got = fwd_schedule_model(batch, gp.numpy(), match, mismatch, cells)
+    args = [torch.from_numpy(x) for x in (batch.a_let, batch.b_let, batch.la,
+                                         batch.lb, batch.dlo, batch.bw)]
+    want = bn.banded_nw_fwd_plain(*args, gp, match, mismatch, W)
+    for x, y in zip(got, want):
+        assert np.array_equal(x.view(np.uint8) if x.dtype == np.float32
+                              else x, y.numpy().view(np.uint8)
+                              if y.dtype == torch.float32 else y.numpy())
+    tb, mlast, dlb = (torch.from_numpy(x) for x in got)
+    scores, _, _, ops = bn.banded_nw_chase(tb, mlast, dlb, *args[2:], gp)
+    paths = bn.decode_packed_ops(ops.numpy(), len(pairs))
+    for k, pair in enumerate(pairs):
+        if len(pair) >= 4:
+            s_o, p_o = banded_nw(pair[0], pair[1], pair[2], pair[3], ap)
+        else:
+            s_o, p_o = banded_nw_main_diag(pair[0], pair[1], radius, ap)
+        assert np.float32(s_o) == scores[k].item() and p_o == paths[k], k
+
+
+@pytest.mark.parametrize("pen", [DYADIC, NON_DYADIC])
+@pytest.mark.parametrize("bw", [1, 16, 32, 33, 64, 120, 121, 126])
+def test_schedule_model_at_band(bw, pen):
+    """The kernel's schedule at the cells its rule takes for each band,
+    la > lb, la < lb and la == lb."""
+    rng = np.random.default_rng(bw)
+    n = 3 if bw == 1 else 6
+    assert_model_matches(band_pairs(rng, n, bw), 0, nucleo_params(*pen))
+
+
+@pytest.mark.parametrize("cells", (4, 6))
+def test_schedule_model_every_cells(cells):
+    """Both part widths the kernel is built for, at bands that leave the
+    last lane's cells partly past the band (33) and at 64."""
+    rng = np.random.default_rng(40 + cells)
+    pairs = band_pairs(rng, 4, 33) + band_pairs(rng, 3, 64)
+    assert_model_matches(pairs, 0, nucleo_params(*NON_DYADIC), cells)
+
+
+@pytest.mark.parametrize("pen", [DYADIC, NON_DYADIC])
+def test_schedule_model_indel_fixture(pen):
+    """The fixture on which the TPU kernel's doubling scan departs from
+    the oracle, and random main-diagonal pairs with N letters."""
+    pairs = indel_fixture(n=16)
+    assert_model_matches(pairs, 24, nucleo_params(*pen))
+    rng = np.random.default_rng(9)
+    assert_model_matches(rand_pairs(rng, 8, 20, 120, dl=12, n_rate=0.05,
+                                    lower=0.2), 16, nucleo_params(*pen))
+
+
+def test_fwd_cells_rule():
+    """The kernel's cells either side of its threshold, and the geometry
+    every band up to BAND_LANES gets."""
+    assert [kernel_cells(w) for w in (1, 41, 120, 121, 125, 126)] == \
+        [6, 6, 6, 4, 4, 4]
+    for w in range(1, bn.BAND_LANES + 1):
+        lanes, pairs, ring = fwd_geometry(w, kernel_cells(w))
+        assert 2 * lanes * kernel_cells(w) >= w and lanes * pairs <= 32
+        assert ring >= FLUSH_ROWS + lanes - 1
+        assert ring % FLUSH_ROWS == 0

@@ -47,11 +47,11 @@ def test_dyadic_equals_pallas_cell_by_cell(pairs):
         j = dlo + i - la + k
         ok = (j >= 0) & (j < lb)
         theirs = tb_j[p][i, (k + i) % 128]
-        assert np.array_equal(tb[:la, :bw, p][ok], theirs[ok]), p
+        assert np.array_equal(tb[p, :la, :bw][ok], theirs[ok]), p
         n_cells += int(ok.sum())
         rows = np.arange(la)
         stored = la + lb - dlo - rows < 128      # Drow[LB] lanes kept
-        assert np.array_equal(tb[:la, W, p][stored],
+        assert np.array_equal(tb[p, :la, W][stored],
                               tb_j[p][rows[stored], (la + lb - dlo) % 128])
     assert n_cells > 100000
     paths = dev.traceback(batch, st, tb, tl)

@@ -277,3 +277,103 @@ def test_trace_kernels_on_lopsided_pairs(card, long_side):
     for k in range(0, 40, 10):
         s_o, p_o = banded_nw_main_diag(*pairs[k], 600, ap)
         assert np.float32(s_o) == s[k] and p_o == p[k]
+
+
+def _band_pairs(rng, n, bw):
+    """n (a, b, dlo, dhi) pairs of band exactly bw, la > lb, la < lb and
+    la == lb in turns, of 1 to 300 letters (so amax passes most la)."""
+    conv = np.frombuffer(b"ACGTN", np.uint8)
+    pairs = []
+    for k in range(n):
+        la = int(rng.integers(bw, max(bw + 1, 300)))
+        d = 0 if bw == 1 else int(rng.integers(1, min(bw, 12)))
+        lb = max(1, la + (d, -d, 0)[k % 3])
+        dlo = int(rng.integers(max(1, max(la, lb) - bw + 1), min(la, lb) + 1))
+        a = rng.integers(0, 4, la)
+        b = np.resize(a, lb).copy()
+        flip = rng.random(lb) < 0.12
+        b[flip] = rng.integers(0, 5, int(flip.sum()))
+        pairs.append((conv[a], conv[b], dlo, dlo + bw - 1))
+    return pairs
+
+
+@pytest.mark.parametrize("bw", [1, 16, 32, 33, 64, 120, 121, 126])
+def test_banded_nw_fwd_every_cells(card, bw):
+    """The forward kernel through its wrapper at bands either side of the
+    width where it changes from 6 cells a part to 4, pairs of several la
+    in one warp and a count of pairs that leaves the last warp part
+    empty, bit-equal to the plain version."""
+    from usearch12_tpu_torch import _build
+    from usearch12_tpu_torch.ops import banded_nw as bn
+    ap = wnw.nucleo_params(-10.3, -1.1, -0.7, -0.4)
+    pairs = _band_pairs(np.random.default_rng(bw), 203, bw)
+    batch = bn.pack_pairs(pairs, True, 0)
+    args = tuple(torch.from_numpy(x).to(card) for x in (
+        batch.a_let, batch.b_let, batch.la, batch.lb, batch.dlo, batch.bw))
+    gp = wnw.gap_params(ap).to(card)
+    mm = wnw.match_mismatch(ap)
+    plain = bn.banded_nw_fwd_plain(*args, gp, *mm, bw)
+    assert _build.load_library().banded_nw_fwd_cells(bw) == (
+        4 if bw > 120 else 6)
+    n0 = bn.banded_nw_fwd.launches
+    got = bn.banded_nw_fwd(*args, gp, *mm)
+    assert bn.banded_nw_fwd.launches == n0 + 1
+    torch.cuda.synchronize()
+    assert all(_bit_equal(x, y) for x, y in zip(got, plain))
+
+
+def _hist_chunk(rng, cq, boots, uwmax, m_val, short):
+    nuw = rng.integers(1, uwmax + 1, cq).astype(np.int32)
+    nuw[:2] = (0, 1)
+    m = np.full(cq, m_val, np.int32)
+    m[2] = min(m_val, 1)
+    m[3] = 0
+    n = boots * max(1, max(m_val, 1) // (3 if short else 1))
+    stream = rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(np.uint32)
+    return nuw, m, stream
+
+
+@pytest.mark.parametrize("short", [False, True])
+@pytest.mark.parametrize("uwmax,cq,boots", [(8, 6, 5), (8192, 6, 5),
+                                            (256, 128, 100)])
+@pytest.mark.parametrize("m_val", [0, 1, 127, 128, 2049])
+def test_pick_hist_kernel(card, m_val, uwmax, cq, boots, short):
+    """The pick histogram kernel against its plain version in the card's
+    type for m: nuw = 0 and 1, m = 0 and 1, streams shorter than boots x m,
+    rows of 8 and 8,192 slots and a full chunk (128 jobs x 100 boots)."""
+    from usearch12_tpu_torch.ops import sintax_boot as sb
+    rng = np.random.default_rng(m_val + uwmax + short)
+    nuw, m, stream = _hist_chunk(rng, cq, boots, uwmax, m_val, short)
+    up = lambda x: torch.from_numpy(x.view(np.int32)).to(card)  # noqa: E731
+    dtype = (torch.int8 if m_val <= sb.INT8_MAX else torch.float16
+             if m_val <= sb.FP16_EXACT else torch.float32)
+    n0 = sb.pick_hist.launches
+    got = sb.pick_hist(up(nuw), up(m), up(stream), boots, uwmax, dtype)
+    want = sb.pick_hist_plain(up(nuw), up(m), up(stream), boots, uwmax,
+                              dtype)
+    torch.cuda.synchronize()
+    assert sb.pick_hist.launches == n0 + 1
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("uwmax,dtype", [(16384, torch.float32),
+                                         (65536, torch.int8),
+                                         (20000, torch.float16)])
+def test_pick_hist_rows_past_shared_memory(card, uwmax, dtype):
+    """Rows of counters larger than a block's shared memory: each block
+    counts one boot over a range of slots."""
+    from usearch12_tpu_torch import _build
+    from usearch12_tpu_torch.ops import sintax_boot as sb
+    rng = np.random.default_rng(uwmax)
+    cq, boots, m_val = 5, 7, 120
+    code = {torch.float32: 0, torch.float16: 1, torch.int8: 2}[dtype]
+    assert _build.load_library().sintax_pick_hist_tiles(
+        boots, cq, uwmax, code) > 1
+    nuw, m, stream = _hist_chunk(rng, cq, boots, uwmax, m_val, False)
+    nuw[4] = uwmax
+    up = lambda x: torch.from_numpy(x.view(np.int32)).to(card)  # noqa: E731
+    got = sb.pick_hist(up(nuw), up(m), up(stream), boots, uwmax, dtype)
+    want = sb.pick_hist_plain(up(nuw), up(m), up(stream), boots, uwmax,
+                              dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and int(want[4].sum()) == boots * m_val

@@ -188,6 +188,70 @@ def test_split_slots_above_2048_picks():
     np.testing.assert_array_equal(got[1].numpy(), jax_t)
 
 
+def jax_step_hist(nuw, m, stream, boots, uwmax):
+    """The JAX step's pick histogram (sintax_device.py:125-141) in numpy:
+    mmax = len(stream) // boots draws a boot, draw_pos clipped to the
+    stream, uint32 picks modulo max(nuw, 1), added where k < m."""
+    cq = len(nuw)
+    mmax = len(stream) // boots
+    b_idx = np.arange(boots, dtype=np.int64)[:, None]
+    k_idx = np.arange(mmax, dtype=np.int64)[None, :]
+    draw_pos = np.clip(b_idx * m.astype(np.int64)[:, None, None]
+                       + k_idx[None], 0, boots * mmax - 1)
+    draws = stream.astype(np.uint32)[draw_pos]
+    live = np.broadcast_to(k_idx[None] < m[:, None, None], draws.shape)
+    pick = draws % np.maximum(nuw, 1).astype(np.uint32)[:, None, None]
+    P = np.zeros((cq, boots, uwmax), np.int64)
+    n_i, b_i, _ = np.broadcast_arrays(np.arange(cq)[:, None, None],
+                                      b_idx[None], pick)
+    np.add.at(P, (n_i[live], b_i[live], pick[live].astype(np.int64)), 1)
+    return P
+
+
+def hist_chunk(m_val, uwmax, short, seed=0):
+    """A chunk of 6 jobs x 5 boots: nuw 0, 1, uwmax and at random, m =
+    m_val (0 and 1 in two of the jobs); a stream of 5 * m_val draws, or
+    a third of that (short: the later boots' positions clip), a multiple
+    of the boots as the JAX step's stream is."""
+    rng = np.random.default_rng(seed + m_val + uwmax + short)
+    boots = 5
+    nuw = np.array([0, 1, uwmax] + list(rng.integers(1, uwmax + 1, 3)),
+                   np.int32)
+    m = np.full(6, m_val, np.int32)
+    m[4] = min(m_val, 1)
+    m[5] = 0
+    n = boots * max(1, max(m_val, 1) // (3 if short else 1))
+    stream = rng.integers(0, 2 ** 32, n,
+                          dtype=np.uint64).astype(np.uint32)
+    return nuw, m, stream, boots
+
+
+def hist_dtype(m_val):
+    """P's type on the card for m_val picks (product_dtype's rule, with
+    the float32 count of boot_step above 2048)."""
+    return (torch.int8 if m_val <= sb.INT8_MAX else
+            torch.float16 if m_val <= sb.FP16_EXACT else torch.float32)
+
+
+@pytest.mark.parametrize("short", [False, True])
+@pytest.mark.parametrize("uwmax", [8, 8192])
+@pytest.mark.parametrize("m_val", [0, 1, 127, 128, 2049])
+def test_pick_hist_plain_equals_jax_step(m_val, uwmax, short):
+    """pick_hist_plain in the card's type for m against the JAX step's
+    histogram: nuw = 0 and 1, m = 0, a stream shorter than boots x m."""
+    nuw, m, stream, boots = hist_chunk(m_val, uwmax, short)
+    up = lambda x: torch.from_numpy(x.view(np.int32))  # noqa: E731
+    dtype = hist_dtype(m_val)
+    P = sb.pick_hist_plain(up(nuw), up(m), up(stream), boots, uwmax, dtype)
+    assert P.dtype == dtype and P.shape == (6, boots, uwmax)
+    want = jax_step_hist(nuw, m, stream, boots, uwmax)
+    np.testing.assert_array_equal(P.to(torch.int64).numpy(), want)
+    assert not want[5].any() and want[0, :, 1:].sum() == 0
+    assert (want.sum(2) == np.minimum(m, len(stream) // boots)[:, None]).all()
+    assert torch.equal(sb.pick_hist(up(nuw), up(m), up(stream), boots, uwmax,
+                                    dtype), P)
+
+
 def test_wrappers_refuse_bad_chunks():
     """The kernels index unchecked: the wrappers check first."""
     nuw = torch.tensor([20], dtype=torch.int32)
@@ -197,6 +261,12 @@ def test_wrappers_refuse_bad_chunks():
         sb.pick_hist(nuw, m, stream, 10, 16, torch.float32)
     with pytest.raises(ValueError, match="stream"):
         sb.pick_hist(nuw, m, stream[:5], 10, 32, torch.float32)
+    with pytest.raises(ValueError, match="m outside"):   # int8 wraps at 128
+        sb.pick_hist(nuw, torch.tensor([128], dtype=torch.int32), stream,
+                     10, 32, torch.int8)
+    with pytest.raises(ValueError, match="m outside"):
+        sb.pick_hist(nuw, torch.tensor([-1], dtype=torch.int32), stream,
+                     10, 32, torch.float32)
     i32 = torch.int32
     counts = (torch.zeros((2, 3, 8)), torch.zeros((2, 8), dtype=i32),
               torch.full((2,), 8, dtype=i32),

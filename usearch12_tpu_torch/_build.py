@@ -117,6 +117,8 @@ def load_library():
                 i32, i32,                      # n_pairs, width
                 vp, vp, vp,                    # tb, mlast, dlb
                 vp]                            # stream
+            lib.banded_nw_fwd_cells.restype = i32
+            lib.banded_nw_fwd_cells.argtypes = [i32]
             lib.banded_nw_chase_launch.restype = i32
             lib.banded_nw_chase_launch.argtypes = [
                 vp, i32, vp, i32, vp,          # tb, amax, mlast, width, dlb
@@ -129,6 +131,8 @@ def load_library():
                 vp, vp, vp, i32,               # nuw, m, stream, stream_len
                 i32, i32, i32, i32,            # boots, cq, uwmax, dtype
                 vp, vp]                        # P, stream
+            lib.sintax_pick_hist_tiles.restype = i32
+            lib.sintax_pick_hist_tiles.argtypes = [i32, i32, i32, i32]
             lib.sintax_boot_count_select_launch.restype = i32
             lib.sintax_boot_count_select_launch.argtypes = [
                 vp, i32, i32, i32, i32,        # P, dtype, cq, boots, uwmax

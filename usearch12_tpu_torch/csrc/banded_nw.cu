@@ -19,14 +19,28 @@
 // Geometry.  Pair p aligns a (la) with b (lb) in the diagonal band
 // dlo <= D* <= dlo + bw - 1, D* = la - i + j, with 1 <= dlo <= min(la, lb)
 // and dlo + bw - 1 >= max(la, lb) (the wrapper checks this), bw <= W.
-// Band cell k of row i is column j = dlo + i - la + k.
+// Band cell k of row i is column j = dlo + i - la + k.  The row sweep
+// keeps one M and one D slot a band cell (and a slot W, never written),
+// updated in place: cell k of row i reads M[k] (the diagonal) and
+// D[k + 1] (up) as row i - 1 left them, and a slot that a row does not
+// write keeps its value (NEG from the start, 0 in slot la - dlo for cell
+// (0, 0)).
 //
 // Layouts (W = the launch's band width, the widest pair's bw):
-//   tb     (amax, W + 1, P) uint8: tb[i][k][p] holds the 4-bit code of
+//   tb     (P, amax, W + 1) uint8: tb[p][i][k] holds the 4-bit code of
 //          band cell k of row i (0 outside the matrix and for k >= bw);
-//          tb[i][W][p] holds the Drow[LB] bit of row i (0 or TB_MD).
-//          Pair-minor, so a warp's 32 threads store neighbouring bytes.
-//          Rows i >= la are 0 (the wrapper zeroes the buffer).
+//          tb[p][i][W] holds the Drow[LB] bit of row i (0 or TB_MD).
+//          Rows i >= la are 0.  Pair-major, so that the forward kernel
+//          writes each pair's rows as one contiguous run.  It was
+//          pair-minor, (amax, W + 1, P), while the forward kernel was one
+//          thread a pair.  Measured effect (chip_smoke.py --against the
+//          pair-minor version, kernels alone, H100 80GB HBM3 at 700 W):
+//          the chase, still one thread a pair, went from 0.20 to 0.45 ms
+//          on 65,536 pairs of 250 nt and from 0.40 to 0.70 ms on 2,048
+//          pairs of 1 kb, as each thread now reads a region of its own;
+//          with the forward pass (3.44 to 2.15 and 10.07 to 0.97 ms) both
+//          kernels together take 2.60 and 1.66 ms where they took 3.64
+//          and 10.47.
 //   mlast  (P, W) float32: M of row la-1, mlast[p][k] = M(la-1, dlo-1+k),
 //          NEG outside the matrix and for k >= bw.
 //   dlb    (P,) float32: Drow[LB] after row la-1 (the final D score).
@@ -37,17 +51,36 @@
 //          low bits up, OP_PAD = 3 after the end (the JAX package's
 //          decode_packed_ops format).
 //
-// What bounds it on the card: each pair is a chain of la rows of bw
-// dependent cells (the I state runs through the row), a dozen float ops
-// per cell and a byte of traceback.  Design: one thread per pair, as the
-// host nw_band does it.  The pair's M and D rows (at most 127 floats
-// each) live in shared memory, slot k of thread t at [k * 32 + t], so the
-// 32 threads of a block hit 32 distinct banks whatever their k.  Updated
-// in place from left to right: cell k reads M[k] (diagonal) and D[k + 1]
-// (up) of the previous row before it writes M[k] and D[k].  Blocks of 32
-// threads (32.5 KB of shared memory at W = 126) keep many blocks on each
-// SM.  The traceback kernel is one thread per pair too: the final row is a
-// sequential recurrence and the chase a chain of dependent byte loads.
+// banded_nw_fwd.  What bounds it on the card: each pair is a chain of la
+// rows of bw dependent cells (the I state runs along the row), a dozen
+// float ops a cell and a byte of traceback, which dominates the bytes.
+// Design: a group of L lanes of one warp a pair, with a warp holding
+// G = 32 / L pairs.  The band's cells are cut into 2 L parts of CV cells
+// (a template argument, banded_nw_fwd_cells(): 6, or 4 for bands wider
+// than BNW_CV6_MAX): lane l owns parts 2l and 2l + 1, and keeps their M
+// and D slots in registers.  Part v computes row i at step 2i + v: lane
+// l does row s - l at super-step s, part 2l, then part 2l + 1.  So every
+// predecessor of a cell is done at an earlier step: the diagonal and the
+// up cell of the part's own slots and the up cell of part 2l (part 2l + 1's
+// first slot) are in the lane; the up cell of part 2l + 1 is lane l + 1's
+// first D slot, which lane l + 1 computed for row i - 1 in the same
+// super-step, and the I state entering part 2l is lane l - 1's after its
+// part 2l - 1 of row i (the super-step before), both by warp shuffle.
+// The cells, their float operations and the order of each cell's reads
+// are the row sweep's, so are the bits.  The Drow[LB] chain of row i
+// reads M(i - 1, lb - 1), the slot k_lb = lb - dlo - i + la, before row i
+// overwrites it: the part that holds k_lb (capped at the last part when
+// the band misses lb - 1) carries the chain for that row, at the start of
+// its row; k_lb moves one slot left a row, so the chain passes to the
+// left, from lane l + 1 to lane l by a shuffle.  A pair takes la + L - 1
+// super-steps of 2 CV cells a lane, where a thread a pair took la x bw.
+// Traceback: each group writes its rows' codes into a ring of R rows in
+// shared memory; every BNW_FLUSH rows, once lane L - 1 has finished them,
+// the warp copies them to tb as one contiguous run a pair (and writes
+// rows la .. amax - 1 as zeros, so tb needs no clearing).
+//
+// banded_nw_chase is one thread a pair: the final row is a sequential
+// recurrence and the chase a chain of dependent byte loads.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -fmad=false (see
 // usearch12_tpu_torch/_build.py).  -fmad=false keeps every add a single
@@ -55,99 +88,251 @@
 
 #include "wavefront.cuh"
 
-#define BNW_THREADS 32
+#define BNW_WARPS 4          // warps a block of the forward kernel
+#define BNW_FLUSH 16         // traceback rows copied out at a time
+#define BNW_FULL 0xffffffffu
+// Widest band at 6 cells a part.  Wider bands take 4: a group of 6-cell
+// parts is then 11 lanes, two pairs a warp with 10 lanes idle, where a
+// group of 4-cell parts (16 lanes) fills the warp with 8 cells a lane, not
+// 12.  Timed on an H100, 6 was the faster at band 41 and 4 at band 125.
+#define BNW_CV6_MAX 120
 enum { OP_M = 0, OP_D = 1, OP_I = 2, OP_PAD = 3 };
 
-__global__ void banded_nw_fwd_kernel(
-    const uint8_t* __restrict__ a_let, const uint8_t* __restrict__ b_let,
-    int amax, int bmax,
-    const int* __restrict__ la_v, const int* __restrict__ lb_v,
-    const int* __restrict__ dlo_v, const int* __restrict__ bw_v,
-    const float* __restrict__ gp, float match, float mismatch,
-    int n_pairs, int W,
-    uint8_t* __restrict__ tb, float* __restrict__ mlast,
-    float* __restrict__ dlb_out) {
-  extern __shared__ float smem[];
-  const int t = threadIdx.x;
-  const int p = blockIdx.x * BNW_THREADS + t;
-  if (p >= n_pairs) return;           // no barriers below
-  float* M = smem + t;                       // slot k at M[k * BNW_THREADS]
-  float* D = smem + (W + 1) * BNW_THREADS + t;
-  const int la = la_v[p], lb = lb_v[p], dlo = dlo_v[p], bw = bw_v[p];
-  const float open_a = gp[GP_OPEN_A], open_b = gp[GP_OPEN_B];
-  const float ext_a = gp[GP_EXT_A], ext_b = gp[GP_EXT_B];
-  const float l_open_a = gp[GP_L_OPEN_A], l_open_b = gp[GP_L_OPEN_B];
-  const float l_ext_a = gp[GP_L_EXT_A], l_ext_b = gp[GP_L_EXT_B];
-  const float r_open_b = gp[GP_R_OPEN_B], r_ext_b = gp[GP_R_EXT_B];
-  const uint8_t* A = a_let + (size_t)p * amax;
-  const uint8_t* B = b_let + (size_t)p * bmax;
-  const size_t P = (size_t)n_pairs;
-  const size_t row_stride = (size_t)(W + 1) * P;
+// Interface of this file's entry points, for tools that time two
+// versions of it: 2 = the pair-major tb (the arguments are unchanged).
+extern "C" int banded_nw_interface() { return 2; }
 
-  for (int k = 0; k <= W; ++k) {
-    M[k * BNW_THREADS] = UT_NEG;
-    D[k * BNW_THREADS] = UT_NEG;
-  }
-  M[(la - dlo) * BNW_THREADS] = 0.0f;        // DPM[0][0]: cell (0, 0)
-  float dlb = UT_NEG;
+// The cells a part that the forward kernel takes at launch width W.
+extern "C" int banded_nw_fwd_cells(int W) { return W > BNW_CV6_MAX ? 4 : 6; }
 
-  for (int i = 0; i < la; ++i) {
-    const float oa = i == 0 ? l_open_a : open_a;
-    const float ea = i == 0 ? l_ext_a : ext_a;
-    // Drow[LB]: from M(i-1, lb-1), the previous row's slot k_lb, read
-    // before this row overwrites it; NEG when the band missed lb - 1
-    const int k_lb = lb - dlo - i + la;
-    const float m_end = k_lb < bw ? M[k_lb * BNW_THREADS] : UT_NEG;
-    const float md_lb = m_end + r_open_b;
-    const float de_lb = dlb + r_ext_b;
-    const bool take_lb = md_lb >= de_lb;
-    dlb = take_lb ? md_lb : de_lb;
-    uint8_t* T = tb ? tb + i * row_stride + p : nullptr;
-    if (T) T[(size_t)W * P] = take_lb ? UT_TB_MD : 0;
+struct BnwRow {
+  int jbase, kstart, kend, ca;
+  float oa, ea;
+  float sm, sx;         // the row's match / mismatch score (0 for ca = N)
+  uint8_t* trow;
+};
 
-    const int jbase = dlo + i - la;
-    const int kstart = jbase < 0 ? -jbase : 0;
-    const int kend = lb - jbase < bw ? lb - jbase : bw;
-    const int ca = A[i];
-    float i0 = UT_NEG;
-    for (int k = kstart; k < kend; ++k) {
-      const int j = jbase + k;
-      const int cb = B[j];
-      const float sub = (ca < 4 && cb < 4) ? (ca == cb ? match : mismatch)
-                                           : 0.0f;
-      const float ob = j == 0 ? l_open_b : open_b;
-      const float eb = j == 0 ? l_ext_b : ext_b;
-      const float m_diag = M[k * BNW_THREADS];
-      const float d_up = D[(k + 1) * BNW_THREADS];
+struct BnwGaps {
+  float open_b, ext_b, l_open_b, l_ext_b, r_open_b, r_ext_b;
+};
+
+// One part's CV cells of one row, left to right, as the row sweep does
+// them: M[c], D[c] are slots kp + c; up is the D slot kp + CV (the next
+// part's first); i0 the I state entering the part, left as it leaves it.
+// lt[c] holds b's letter at column jbase + kp + c of the row before; the
+// letters move one slot left a row (a column keeps its letter), next is
+// the one entering at the right (the next part's first of the row before).
+template <int CV>
+__device__ __forceinline__ void bnw_cells(
+    float (&M)[CV], float (&D)[CV], int (&lt)[CV], int next, int kp,
+    float up, float& i0, const BnwRow& r, const BnwGaps& g, int W) {
+#pragma unroll
+  for (int c = 0; c + 1 < CV; ++c) lt[c] = lt[c + 1];
+  lt[CV - 1] = next;
+#pragma unroll
+  for (int c = 0; c < CV; ++c) {
+    const int k = kp + c;
+    uint8_t bits = 0;
+    if (k >= r.kstart && k < r.kend) {
+      const int j = r.jbase + k;
+      const int cb = lt[c];
+      const float sub = cb < 4 ? (r.ca == cb ? r.sm : r.sx) : 0.0f;
+      const float ob = j == 0 ? g.l_open_b : g.open_b;
+      const float eb = j == 0 ? g.l_ext_b : g.ext_b;
+      const float m_diag = M[c];
+      const float d_up = c + 1 < CV ? D[c + 1] : up;
       // MATCH: priority M, then D if '>', then I if '>'
       float xm = m_diag;
       const bool take_d = d_up > xm;
       if (take_d) xm = d_up;
       const bool take_i = i0 > xm;
       if (take_i) xm = i0;
-      M[k * BNW_THREADS] = xm + sub;
+      M[c] = xm + sub;
       // DELETE: '>=' favours the open
       const float md = m_diag + ob;
       const float de = d_up + eb;
       const bool take_open = md >= de;
-      D[k * BNW_THREADS] = take_open ? md : de;
+      D[c] = take_open ? md : de;
       // INSERT: the oracle's sequential recurrence, '>=' favours the open
-      const float mi = m_diag + oa;
-      i0 = i0 + ea;
+      const float mi = m_diag + r.oa;
+      i0 = i0 + r.ea;
       const bool take_iopen = mi >= i0;
       if (take_iopen) i0 = mi;
-      if (T)
-        T[(size_t)k * P] = (uint8_t)(
-            (take_i ? UT_TB_IM : (take_d ? UT_TB_DM : 0))
-            | (take_open ? UT_TB_MD : 0) | (take_iopen ? UT_TB_MI : 0));
+      bits = (uint8_t)((take_i ? UT_TB_IM : (take_d ? UT_TB_DM : 0))
+                       | (take_open ? UT_TB_MD : 0)
+                       | (take_iopen ? UT_TB_MI : 0));
     }
-    if (i == la - 1) {
-      float* ML = mlast + (size_t)p * W;
-      for (int k = 0; k < W; ++k)
-        ML[k] = k < kend ? M[k * BNW_THREADS] : UT_NEG;
-    }
+    if (k < W) r.trow[k] = bits;
   }
-  dlb_out[p] = dlb;
+}
+
+// The Drow[LB] chain for row i, carried by the part whose slots start at
+// kp: m_end = M(i - 1, lb - 1), slot k_lb of M as row i - 1 left it (NEG
+// when the band missed lb - 1); prev is Drow[LB] after row i - 1.
+template <int CV>
+__device__ __forceinline__ float bnw_chain(
+    const float (&M)[CV], int kp, int k_lb, int bw, float prev,
+    const BnwGaps& g, const BnwRow& r, int W) {
+  float m_end = UT_NEG;
+#pragma unroll
+  for (int c = 0; c < CV; ++c)
+    if (kp + c == k_lb && k_lb < bw) m_end = M[c];
+  const float md_lb = m_end + g.r_open_b;
+  const float de_lb = prev + g.r_ext_b;
+  const bool take_lb = md_lb >= de_lb;
+  r.trow[W] = take_lb ? UT_TB_MD : 0;
+  return take_lb ? md_lb : de_lb;
+}
+
+template <int CV>
+__device__ __forceinline__ void bnw_mlast(
+    const float (&M)[CV], int kp, int kend, int W, float* __restrict__ ML) {
+#pragma unroll
+  for (int c = 0; c < CV; ++c)
+    if (kp + c < W) ML[kp + c] = kp + c < kend ? M[c] : UT_NEG;
+}
+
+// Rows q * BNW_FLUSH .. + BNW_FLUSH - 1 (below amax) of the warp's G pairs
+// from their rings to tb: each pair's rows are one contiguous run; rows
+// at or past its la are written as zeros.
+__device__ __forceinline__ void bnw_flush(
+    int q, int lane, const uint8_t* ring_w, int R, int G, long long p0,
+    int n_pairs, int amax, int W, int la, int L, uint8_t* __restrict__ tb) {
+  const int r0 = q * BNW_FLUSH;
+  const int rows = min(BNW_FLUSH, amax - r0);
+  const int row_bytes = W + 1;
+  for (int g = 0; g < G; ++g) {
+    const int la_g = __shfl_sync(BNW_FULL, la, g * L);
+    if (p0 + g >= n_pairs) break;
+    const int n = rows * row_bytes;
+    const int n_live = max(0, min(la_g - r0, rows)) * row_bytes;
+    const uint8_t* src = ring_w + ((size_t)g * R + r0 % R) * row_bytes;
+    uint8_t* dst = tb + ((size_t)(p0 + g) * amax + r0) * row_bytes;
+    for (int x = lane; x < n; x += 32) dst[x] = x < n_live ? src[x] : 0;
+  }
+}
+
+template <int CV>
+__global__ void __launch_bounds__(32 * BNW_WARPS) banded_nw_fwd_kernel(
+    const uint8_t* __restrict__ a_let, const uint8_t* __restrict__ b_let,
+    int amax, int bmax,
+    const int* __restrict__ la_v, const int* __restrict__ lb_v,
+    const int* __restrict__ dlo_v, const int* __restrict__ bw_v,
+    const float* __restrict__ gp, float match, float mismatch,
+    int n_pairs, int W, int L, int G, int R,
+    uint8_t* __restrict__ tb, float* __restrict__ mlast,
+    float* __restrict__ dlb_out) {
+  extern __shared__ uint8_t bnw_ring[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane / L, l = lane - g * L;
+  const int row_bytes = W + 1;
+  uint8_t* ring_w = bnw_ring + (size_t)warp * G * R * row_bytes;
+  const long long p0 = ((long long)blockIdx.x * BNW_WARPS + warp) * G;
+  if (p0 >= n_pairs) return;                    // the whole warp
+  const bool live = g < G && p0 + g < n_pairs;
+  const int p = live ? (int)(p0 + g) : 0;
+  const int la = live ? la_v[p] : 0;
+  const int lb = live ? lb_v[p] : 1, dlo = live ? dlo_v[p] : 1;
+  const int bw = live ? bw_v[p] : 1;
+  BnwGaps gaps;
+  gaps.open_b = gp[GP_OPEN_B];
+  gaps.ext_b = gp[GP_EXT_B];
+  gaps.l_open_b = gp[GP_L_OPEN_B];
+  gaps.l_ext_b = gp[GP_L_EXT_B];
+  gaps.r_open_b = gp[GP_R_OPEN_B];
+  gaps.r_ext_b = gp[GP_R_EXT_B];
+  const float open_a = gp[GP_OPEN_A], ext_a = gp[GP_EXT_A];
+  const float l_open_a = gp[GP_L_OPEN_A], l_ext_a = gp[GP_L_EXT_A];
+  const uint8_t* A = a_let + (size_t)p * amax;
+  const uint8_t* B = b_let + (size_t)p * bmax;
+  uint8_t* ring = ring_w + (size_t)(live ? g : 0) * R * row_bytes;
+
+  // slots k0 .. k0 + CV - 1 (part 2l) and k1 .. (part 2l + 1)
+  const int k0 = 2 * l * CV, k1 = k0 + CV;
+  const int n_slots = 2 * L * CV;
+  float M0[CV], D0[CV], M1[CV], D1[CV];
+  int lt0[CV], lt1[CV];       // b's letters, as of the row before row 0
+  const int jb0 = dlo - la - 1;
+#pragma unroll
+  for (int c = 0; c < CV; ++c) {
+    M0[c] = k0 + c == la - dlo ? 0.0f : UT_NEG;  // DPM[0][0]: cell (0, 0)
+    M1[c] = k1 + c == la - dlo ? 0.0f : UT_NEG;
+    D0[c] = UT_NEG;
+    D1[c] = UT_NEG;
+    lt0[c] = B[min(max(jb0 + k0 + c, 0), bmax - 1)];
+    lt1[c] = B[min(max(jb0 + k1 + c, 0), bmax - 1)];
+  }
+  float dlb = UT_NEG;         // Drow[LB] after the last row this lane carried
+  float i_out = UT_NEG;       // I state after part 2l + 1 of the last row
+  const int la_max = __reduce_max_sync(BNW_FULL, la);
+  const int s_end = la_max + L - 2;
+  const int n_chunks = (amax + BNW_FLUSH - 1) / BNW_FLUSH;
+  int q = 0;
+  int flush_at = BNW_FLUSH + L - 2;              // the super-step of chunk q
+  int ring_i = l == 0 ? 0 : R - l;               // (s - l) mod R
+  for (int s = 0; s <= s_end; ++s) {
+    const int i = s - l;
+    const bool act = live && i >= 0 && i < la;
+    // the I state entering part 2l: lane l - 1's after row i
+    float i0 = __shfl_up_sync(BNW_FULL, i_out, 1);
+    if (l == 0) i0 = UT_NEG;
+    BnwRow r;
+    int k_lb = 0, own = -1;
+    if (act) {
+      r.jbase = dlo + i - la;
+      r.kstart = r.jbase < 0 ? -r.jbase : 0;
+      r.kend = lb - r.jbase < bw ? lb - r.jbase : bw;
+      r.ca = A[i];
+      r.sm = r.ca < 4 ? match : 0.0f;
+      r.sx = r.ca < 4 ? mismatch : 0.0f;
+      r.oa = i == 0 ? l_open_a : open_a;
+      r.ea = i == 0 ? l_ext_a : ext_a;
+      r.trow = ring + ring_i * row_bytes;
+      k_lb = lb - dlo - i + la;
+      own = min(k_lb, n_slots - 1) / CV;         // the part carrying Drow[LB]
+      if (own == 2 * l) {
+        dlb = bnw_chain<CV>(M0, k0, k_lb, bw, dlb, gaps, r, W);
+        if (i == la - 1) dlb_out[p] = dlb;
+      }
+      bnw_cells<CV>(M0, D0, lt0, lt1[0], k0, D1[0], i0, r, gaps, W);
+      if (i == la - 1) bnw_mlast<CV>(M0, k0, r.kend, W,
+                                     mlast + (size_t)p * W);
+    }
+    // part 2l + 1: lane l + 1's first D slot and its Drow[LB], both as
+    // its part 2l + 2 of row i - 1 left them just now
+    float up = __shfl_down_sync(BNW_FULL, D0[0], 1);
+    const float dlb_right = __shfl_down_sync(BNW_FULL, dlb, 1);
+    int next = __shfl_down_sync(BNW_FULL, lt0[0], 1);
+    if (l == L - 1) {
+      up = UT_NEG;                               // slot 2 L CV: never written
+      if (act) next = B[min(r.jbase + n_slots - 1, bmax - 1)];
+    }
+    if (act) {
+      if (own == 2 * l + 1) {
+        const int own_prev = min(k_lb + 1, n_slots - 1) / CV;
+        const float prev = own_prev == 2 * l + 2 ? dlb_right : dlb;
+        dlb = bnw_chain<CV>(M1, k1, k_lb, bw, prev, gaps, r, W);
+        if (i == la - 1) dlb_out[p] = dlb;
+      }
+      bnw_cells<CV>(M1, D1, lt1, next, k1, up, i0, r, gaps, W);
+      i_out = i0;
+      if (i == la - 1) bnw_mlast<CV>(M1, k1, r.kend, W,
+                                     mlast + (size_t)p * W);
+    }
+    // rows q * BNW_FLUSH .. + BNW_FLUSH - 1 are done once lane L - 1 has
+    // done the last of them
+    if (tb && q < n_chunks && s == flush_at) {
+      __syncwarp();
+      bnw_flush(q, lane, ring_w, R, G, p0, n_pairs, amax, W, la, L, tb);
+      __syncwarp();
+      ++q;
+      flush_at += BNW_FLUSH;
+    }
+    ring_i = ring_i + 1 == R ? 0 : ring_i + 1;
+  }
+  __syncwarp();
+  for (; tb && q < n_chunks; ++q)
+    bnw_flush(q, lane, ring_w, R, G, p0, n_pairs, amax, W, la, L, tb);
 }
 
 __global__ void banded_nw_chase_kernel(
@@ -195,7 +380,6 @@ __global__ void banded_nw_chase_kernel(
   states[p] = (uint8_t)st;
   if (tb == nullptr) return;
 
-  const size_t P = (size_t)n_pairs;
   uint8_t* O = ops + (size_t)p * stride;
   int i = la, j = lb, n = 0;
   unsigned acc = 0;
@@ -215,14 +399,14 @@ __global__ void banded_nw_chase_kernel(
         const int k = rj - dlo + 1;
         bits = k >= 0 && k < W ? TL[k] : 0;
       } else if (ri < amax) {
-        const uint8_t* T = tb + (size_t)ri * (W + 1) * P + p;
+        const uint8_t* T = tb + ((size_t)p * amax + ri) * (W + 1);
         const int k = rj - (dlo + ri - la);
         if (rj == lb)
-          bits = T[(size_t)W * P];
+          bits = T[W];
         else if (k == -1)
           bits = UT_TB_IM;     // the reference's marker TB[i][startj-1]
         else if (k >= 0 && k < bw)
-          bits = T[(size_t)k * P];
+          bits = T[k];
       }
     }
     if (st == OP_M)
@@ -240,20 +424,47 @@ __global__ void banded_nw_chase_kernel(
   }
 }
 
+template <int CV>
+static int bnw_fwd_launch(
+    const void* a_let, const void* b_let, int amax, int bmax,
+    const void* la, const void* lb, const void* dlo, const void* bw,
+    const void* gp, float match, float mismatch, int n_pairs, int W,
+    void* tb, void* mlast, void* dlb, cudaStream_t stream) {
+  const int L = (W + 2 * CV - 1) / (2 * CV);
+  if (L > 32) return (int)cudaErrorInvalidValue;
+  const int G = 32 / L;
+  const int R = (BNW_FLUSH + L - 1 + BNW_FLUSH - 1) / BNW_FLUSH * BNW_FLUSH;
+  const size_t smem = (size_t)BNW_WARPS * G * R * (W + 1);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        banded_nw_fwd_kernel<CV>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const long long warps = ((long long)n_pairs + G - 1) / G;
+  const long long blocks = (warps + BNW_WARPS - 1) / BNW_WARPS;
+  banded_nw_fwd_kernel<CV><<<(unsigned)blocks, 32 * BNW_WARPS, smem,
+                             stream>>>(
+      (const uint8_t*)a_let, (const uint8_t*)b_let, amax, bmax,
+      (const int*)la, (const int*)lb, (const int*)dlo, (const int*)bw,
+      (const float*)gp, match, mismatch, n_pairs, W, L, G, R,
+      (uint8_t*)tb, (float*)mlast, (float*)dlb);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int banded_nw_fwd_launch(
     const void* a_let, const void* b_let, int amax, int bmax,
     const void* la, const void* lb, const void* dlo, const void* bw,
     const void* gp, float match, float mismatch, int n_pairs, int W,
     void* tb, void* mlast, void* dlb, void* stream) {
   if (n_pairs <= 0) return 0;
-  const size_t smem = 2 * (size_t)(W + 1) * BNW_THREADS * sizeof(float);
-  const int blocks = (n_pairs + BNW_THREADS - 1) / BNW_THREADS;
-  banded_nw_fwd_kernel<<<blocks, BNW_THREADS, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)a_let, (const uint8_t*)b_let, amax, bmax,
-      (const int*)la, (const int*)lb, (const int*)dlo, (const int*)bw,
-      (const float*)gp, match, mismatch, n_pairs, W, (uint8_t*)tb,
-      (float*)mlast, (float*)dlb);
-  return (int)cudaGetLastError();
+  if (W < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (banded_nw_fwd_cells(W) == 6)
+    return bnw_fwd_launch<6>(a_let, b_let, amax, bmax, la, lb, dlo, bw, gp,
+                             match, mismatch, n_pairs, W, tb, mlast, dlb, s);
+  return bnw_fwd_launch<4>(a_let, b_let, amax, bmax, la, lb, dlo, bw, gp,
+                           match, mismatch, n_pairs, W, tb, mlast, dlb, s);
 }
 
 extern "C" int banded_nw_chase_launch(

@@ -7,13 +7,14 @@
 //
 // sintax_pick_hist (step :125-141).  Job j of a chunk samples m[j] of its
 // nuw[j] unique words in each of `boots` boots.  Boot b's k-th pick is
-// stream[b * m[j] + k] % max(nuw[j], 1) in uint32, the position clipped
-// to the stream as the JAX step clips it; P[j][b][w] counts how often
-// slot w was picked.  One thread owns row (j, b) of P (cq, boots, uwmax):
-// it zeroes the row and adds its m picks, so it needs no atomics.  The
-// counts are written in the product's type: int8 while m <= 127 (the JAX
-// step's int8_ok rule), float16 up to 2048, float32 (the plain route, and
-// above 2048, where the wrapper splits the counts into float16 parts).
+// stream[b * m[j] + k] % max(nuw[j], 1) in uint32, for k < min(m[j],
+// mmax) with mmax = stream_len / boots, the position clipped to the
+// stream as the JAX step clips it; P[j][b][w] counts how often
+// slot w was picked.  The counts are written in the product's type: int8
+// while m <= 127 (the JAX step's int8_ok rule), float16 up to 2048,
+// float32 (the plain route, and above 2048, where the wrapper splits the
+// counts into float16 parts).  Blocks count tiles of P in shared memory
+// (design below, at the kernel).
 //
 // sintax_boot_count_select (step :143-164): U = P @ mq over each job's
 // live word slots (mq the incidence rows of its words, ids clipped to the
@@ -66,62 +67,171 @@
 
 #include <type_traits>
 
-#define SB_THREADS 256
 #define FULL_MASK 0xffffffffu
 
 enum { SB_FLOAT32 = 0, SB_FLOAT16 = 1, SB_INT8 = 2 };
 
-__device__ inline float sb_load(const float* p) { return *p; }
-__device__ inline float sb_load(const __half* p) { return __half2float(*p); }
-__device__ inline float sb_load(const int8_t* p) { return (float)*p; }
-__device__ inline void sb_store(float* p, float x) { *p = x; }
-__device__ inline void sb_store(__half* p, float x) { *p = __float2half(x); }
-__device__ inline void sb_store(int8_t* p, float x) { *p = (int8_t)x; }
+// sintax_pick_hist.  What bounds it: writing P (cq x boots x uwmax
+// counts, 3.3 MB a chunk of 128 jobs x 100 boots x 256 slots in int8)
+// and reading the stream; the picks themselves are few (m a boot).  One
+// block counts a tile of P in shared memory: a group of boots of one job
+// over all its slots, or, where one row of counters does not fit
+// PH_SMEM_BYTES, one boot over a range of slots (it reads all the boot's
+// picks and counts those in its range).  The groups are cut so that a
+// chunk gives at least PH_MIN_BLOCKS blocks.  Counters are packed into
+// 32-bit words of shared memory and bumped with shared atomics: four
+// 8-bit counters a word for int8 P (a count never passes m <= 127, so no
+// carry crosses a byte), two 16-bit ones for float16 (counts <= 2048),
+// one for float32.  Boot b's picks are stream[b * m + k], so the picks of
+// boots b0 .. b1 are one run of the stream, read coalesced.  The tile's
+// rows are one contiguous run of P (all slots, or one boot), written from
+// the counters with 16-byte stores (scalar stores up to the first 16-byte
+// boundary and after the last).
+#define PH_THREADS 256
+#define PH_SMEM_BYTES (32 * 1024)       // counters of one block
+#define PH_MIN_BLOCKS (4 * 132)         // four blocks for each SM
 
-template <typename T>
-__global__ void sintax_pick_hist_kernel(
+struct PhPlan {
+  int nb;       // boots a block
+  int groups;   // boot groups a job
+  int nw;       // slots a block
+  int tiles;    // slot tiles a row
+};
+
+static PhPlan ph_plan(int boots, int cq, int uwmax, int cbytes) {
+  PhPlan p;
+  const long long row = (long long)uwmax * cbytes;
+  if (row <= PH_SMEM_BYTES) {
+    p.nw = uwmax;
+    p.tiles = 1;
+    const int rows_fit = (int)(PH_SMEM_BYTES / row);
+    int groups = (boots + rows_fit - 1) / rows_fit;
+    const int want = (PH_MIN_BLOCKS + cq - 1) / cq;
+    if (groups < want) groups = want < boots ? want : boots;
+    p.nb = (boots + groups - 1) / groups;
+    p.groups = (boots + p.nb - 1) / p.nb;
+  } else {
+    p.nb = 1;
+    p.groups = boots;
+    p.nw = PH_SMEM_BYTES / cbytes;
+    p.tiles = (uwmax + p.nw - 1) / p.nw;
+  }
+  return p;
+}
+
+__device__ inline uint32_t ph_bits(int8_t*, uint32_t c) { return c & 0xff; }
+__device__ inline uint32_t ph_bits(__half*, uint32_t c) {
+  return __half_as_ushort(__uint2half_rn(c));
+}
+__device__ inline uint32_t ph_bits(float*, uint32_t c) {
+  return __float_as_uint((float)c);
+}
+
+template <typename T, int CB>
+__global__ void __launch_bounds__(PH_THREADS) sintax_pick_hist_kernel(
     const int* __restrict__ nuw, const int* __restrict__ m,
     const uint32_t* __restrict__ stream, int stream_len, int boots,
-    int rows, int uwmax, T* __restrict__ P) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= rows) return;
-  const int j = r / boots, b = r - j * boots;
-  T* row = P + (size_t)r * uwmax;
-  for (int w = 0; w < uwmax; ++w) sb_store(row + w, 0.f);
+    int uwmax, PhPlan plan, T* __restrict__ P) {
+  extern __shared__ uint32_t cnt[];
+  constexpr int PER = 32 / CB;                  // counters a word
+  constexpr uint32_t MASK = CB == 32 ? 0xffffffffu : (1u << CB) - 1;
+  int x = blockIdx.x;
+  const int tile = x % plan.tiles;
+  x /= plan.tiles;
+  const int g = x % plan.groups, j = x / plan.groups;
+  const int b0 = g * plan.nb, w0 = tile * plan.nw;
+  const int nb = min(plan.nb, boots - b0), nw = min(plan.nw, uwmax - w0);
+  const int n_cnt = nb * nw;
+  const int n_words = (n_cnt + PER - 1) / PER;
+  for (int i = threadIdx.x; i < n_words; i += PH_THREADS) cnt[i] = 0;
+  __syncthreads();
+
+  // picks k < min(m, mmax), mmax = stream_len / boots, as the JAX step
+  // takes them (its k runs to the stream's mmax)
   const int mj = m[j];
+  const int me = min(mj, stream_len / boots);
   const uint32_t n = (uint32_t)max(nuw[j], 1);
-  for (int k = 0; k < mj; ++k) {
-    long long pos = (long long)b * mj + k;
+  const int total = nb * me;
+  for (int idx = threadIdx.x; idx < total; idx += PH_THREADS) {
+    const int r = idx / me, k = idx - r * me;
+    long long pos = (long long)(b0 + r) * mj + k;
     pos = pos < 0 ? 0 : (pos >= stream_len ? stream_len - 1 : pos);
-    const uint32_t w = stream[pos] % n;
-    sb_store(row + w, sb_load(row + w) + 1.f);
+    const uint32_t w = stream[pos] % n - (uint32_t)w0;
+    if (w < (uint32_t)nw) {
+      const int e = r * nw + (int)w;
+      atomicAdd(&cnt[e / PER], 1u << (CB * (e % PER)));
+    }
   }
+  __syncthreads();
+
+  // the tile's counts as one contiguous run of P
+  T* dst = P + ((size_t)j * boots + b0) * uwmax + w0;
+  auto count = [&](int e) -> uint32_t {
+    return (cnt[e / PER] >> (CB * (e % PER))) & MASK;
+  };
+  constexpr int V = 16 / (int)sizeof(T);        // elements a 16-byte store
+  int head = (int)(((16 - ((uintptr_t)dst & 15)) & 15) / sizeof(T));
+  if (head > n_cnt) head = n_cnt;
+  const int n_vec = (n_cnt - head) / V;
+  for (int e = threadIdx.x; e < head; e += PH_THREADS) {
+    const uint32_t bits = ph_bits((T*)nullptr, count(e));
+    memcpy(dst + e, &bits, sizeof(T));
+  }
+  for (int v = threadIdx.x; v < n_vec; v += PH_THREADS) {
+    const int e0 = head + v * V;
+    uint32_t wd[4] = {0, 0, 0, 0};
+#pragma unroll
+    for (int q = 0; q < V; ++q) {
+      const int byte = q * (int)sizeof(T);
+      wd[byte >> 2] |= ph_bits((T*)nullptr, count(e0 + q)) << (8 * (byte & 3));
+    }
+    *reinterpret_cast<uint4*>(dst + e0) = make_uint4(wd[0], wd[1], wd[2], wd[3]);
+  }
+  for (int e = head + n_vec * V + threadIdx.x; e < n_cnt; e += PH_THREADS) {
+    const uint32_t bits = ph_bits((T*)nullptr, count(e));
+    memcpy(dst + e, &bits, sizeof(T));
+  }
+}
+
+template <typename T, int CB>
+static int ph_launch(const void* nuw, const void* m, const void* stream,
+                     int stream_len, int boots, int cq, int uwmax, void* P,
+                     cudaStream_t s) {
+  const PhPlan plan = ph_plan(boots, cq, uwmax, CB / 8);
+  const size_t smem =
+      ((size_t)plan.nb * plan.nw * (CB / 8) + 3) / 4 * 4;
+  const long long blocks = (long long)cq * plan.groups * plan.tiles;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  sintax_pick_hist_kernel<T, CB><<<(int)blocks, PH_THREADS, smem, s>>>(
+      (const int*)nuw, (const int*)m, (const uint32_t*)stream, stream_len,
+      boots, uwmax, plan, (T*)P);
+  return (int)cudaGetLastError();
+}
+
+// Slot tiles of a row for P of this type (1 where a row of counters fits
+// one block's shared memory).
+extern "C" int sintax_pick_hist_tiles(int boots, int cq, int uwmax,
+                                      int dtype) {
+  const int cbytes = dtype == SB_INT8 ? 1 : (dtype == SB_FLOAT16 ? 2 : 4);
+  return ph_plan(boots, cq, uwmax, cbytes).tiles;
 }
 
 extern "C" int sintax_pick_hist_launch(
     const void* nuw, const void* m, const void* stream, int stream_len,
     int boots, int cq, int uwmax, int dtype, void* P, void* cuda_stream) {
-  const int rows = cq * boots;
-  if (rows <= 0) return 0;
+  if (cq <= 0 || boots <= 0 || uwmax <= 0) return 0;
   if (stream_len <= 0) return (int)cudaErrorInvalidValue;
-  const int blocks = (rows + SB_THREADS - 1) / SB_THREADS;
   cudaStream_t s = (cudaStream_t)cuda_stream;
-  if (dtype == SB_FLOAT16) {
-    sintax_pick_hist_kernel<__half><<<blocks, SB_THREADS, 0, s>>>(
-        (const int*)nuw, (const int*)m, (const uint32_t*)stream, stream_len,
-        boots, rows, uwmax, (__half*)P);
-  } else if (dtype == SB_FLOAT32) {
-    sintax_pick_hist_kernel<float><<<blocks, SB_THREADS, 0, s>>>(
-        (const int*)nuw, (const int*)m, (const uint32_t*)stream, stream_len,
-        boots, rows, uwmax, (float*)P);
-  } else if (dtype == SB_INT8) {
-    sintax_pick_hist_kernel<int8_t><<<blocks, SB_THREADS, 0, s>>>(
-        (const int*)nuw, (const int*)m, (const uint32_t*)stream, stream_len,
-        boots, rows, uwmax, (int8_t*)P);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (dtype == SB_FLOAT16)
+    return ph_launch<__half, 16>(nuw, m, stream, stream_len, boots, cq,
+                                 uwmax, P, s);
+  if (dtype == SB_FLOAT32)
+    return ph_launch<float, 32>(nuw, m, stream, stream_len, boots, cq,
+                                uwmax, P, s);
+  if (dtype == SB_INT8)
+    return ph_launch<int8_t, 8>(nuw, m, stream, stream_len, boots, cq,
+                                uwmax, P, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // ---- sintax_boot_count_select -------------------------------------------

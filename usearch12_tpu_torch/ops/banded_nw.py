@@ -105,7 +105,7 @@ def banded_nw_fwd(a_let, b_let, la, lb, dlo, bw, gp, match: float,
 
     a_let (P, amax), b_let (P, bmax) uint8 letter classes; la, lb, dlo,
     bw (P,) int32; gp (16,) float32 gap penalties.  Returns (tb
-    (amax, W + 1, P) uint8 or None without traceback, mlast (P, W)
+    (P, amax, W + 1) uint8 or None without traceback, mlast (P, W)
     float32, dlb (P,) float32), W the widest band; layouts in
     csrc/banded_nw.cu."""
     dev = a_let.device
@@ -120,7 +120,8 @@ def banded_nw_fwd(a_let, b_let, la, lb, dlo, bw, gp, match: float,
     if dev.type == "cpu":
         return banded_nw_fwd_plain(a_let, b_let, la, lb, dlo, bw, gp, match,
                                    mismatch, W, with_traceback)
-    tb = torch.zeros((amax, W + 1, P), dtype=torch.uint8, device=dev) \
+    # the kernel writes every byte of tb, rows la .. amax - 1 as zeros
+    tb = torch.empty((P, amax, W + 1), dtype=torch.uint8, device=dev) \
         if with_traceback else None
     mlast = torch.empty((P, W), dtype=torch.float32, device=dev)
     dlb = torch.empty(P, dtype=torch.float32, device=dev)
@@ -166,7 +167,7 @@ def banded_nw_fwd_plain(a_let, b_let, la, lb, dlo, bw, gp, match: float,
     M[rows, la_ - dlo_] = 0.0                  # DPM[0][0]
     dlb = neg
     mlast = torch.full((P, W), NEG, dtype=f32, device=dev)
-    tb = torch.zeros((amax, W + 1, P), dtype=torch.uint8, device=dev) \
+    tb = torch.zeros((P, amax, W + 1), dtype=torch.uint8, device=dev) \
         if with_traceback else None
     a64, b64 = a_let.to(i64), b_let.to(i64)
     for i in range(int(la_.max())):
@@ -216,8 +217,8 @@ def banded_nw_fwd_plain(a_let, b_let, la, lb, dlo, bw, gp, match: float,
             bits = (torch.where(take_i, TB_IM, torch.where(take_d, TB_DM, 0))
                     | torch.where(take_open, TB_MD, 0)
                     | torch.where(take_iopen, TB_MI, 0))
-            tb[i, :W] = torch.where(valid, bits, 0).T.to(torch.uint8)
-            tb[i, W] = torch.where(active & take_lb, TB_MD, 0).to(
+            tb[:, i, :W] = torch.where(valid, bits, 0).to(torch.uint8)
+            tb[:, i, W] = torch.where(active & take_lb, TB_MD, 0).to(
                 torch.uint8)
         last = active & (i == la_ - 1)
         mlast = torch.where(last[:, None], torch.where(valid, m_new, NEG),
@@ -242,8 +243,8 @@ def banded_nw_chase(tb, mlast, dlb, la, lb, dlo, bw, gp):
     if bw_max > W:
         raise ValueError("banded_nw_chase: mlast narrower than the band")
     if tb is not None:
-        check_tensor("tb", tb, torch.uint8, 3, dev)
-        if tb.shape[1:] != (W + 1, P) or tb.shape[0] < la_max:
+        check_tensor("tb", tb, torch.uint8, 3, dev, P)
+        if tb.shape[2] != W + 1 or tb.shape[1] < la_max:
             raise ValueError(f"banded_nw_chase: tb of shape "
                              f"{tuple(tb.shape)} does not fit the pairs")
     stride = (steps + 3) // 4
@@ -259,7 +260,7 @@ def banded_nw_chase(tb, mlast, dlb, la, lb, dlo, bw, gp):
     with torch.cuda.device(dev):
         err = lib.banded_nw_chase_launch(
             None if tb is None else tb.data_ptr(),
-            0 if tb is None else tb.shape[0], mlast.data_ptr(), W,
+            0 if tb is None else tb.shape[1], mlast.data_ptr(), W,
             dlb.data_ptr(), la.data_ptr(), lb.data_ptr(), dlo.data_ptr(),
             bw.data_ptr(), gp.data_ptr(), P, scores.data_ptr(),
             states.data_ptr(), tblast.data_ptr(),
@@ -308,7 +309,7 @@ def banded_nw_chase_plain(tb, mlast, dlb, la, lb, dlo, bw, gp, stride: int):
     if tb is None:
         return scores.contiguous(), states, tblast, None
 
-    amax = tb.shape[0]
+    amax = tb.shape[1]
     flat = tb.reshape(-1)
     rows = torch.arange(P, device=dev)
     codes = torch.full((P, 4 * stride + 1), OP_PAD, dtype=u8, device=dev)
@@ -321,12 +322,12 @@ def banded_nw_chase_plain(tb, mlast, dlb, la, lb, dlo, bw, gp, stride: int):
         n = n + live.to(i64)
         ri = torch.where(st == OP_I, i, i - 1)
         rj = torch.where(st == OP_D, j, j - 1)
-        base = ri.clamp(0, amax - 1) * ((W + 1) * P) + rows
+        base = (rows * amax + ri.clamp(0, amax - 1)) * (W + 1)
         k = rj - (dlo_ + ri - la_)
-        band = flat[base + k.clamp(0, W) * P].to(i64)
+        band = flat[base + k.clamp(0, W)].to(i64)
         band = torch.where(k == -1, TB_IM,
                            torch.where((k >= 0) & (k < bw_), band, 0))
-        lbcol = flat[base + W * P].to(i64)
+        lbcol = flat[base + W].to(i64)
         kf = rj - dlo_ + 1
         fin = tblast.gather(1, kf.clamp(0, W - 1)[:, None])[:, 0].to(i64)
         fin = torch.where((kf >= 0) & (kf < W), fin, 0)
@@ -425,7 +426,7 @@ class BandedNWDevice:
 
     def run_batch(self, batch: PairBatch, with_traceback: bool = True):
         """-> (scores (P,) float32, states (P,) 'M'/'D'/'I', tb, tblast),
-        tb (amax, W + 1, P) uint8 (None without traceback) and tblast
+        tb (P, amax, W + 1) uint8 (None without traceback) and tblast
         (P, W) uint8 as host arrays, layouts of csrc/banded_nw.cu."""
         (tb, mlast, dlb), geo = self._forward(batch, with_traceback)
         scores, states, tblast, _ = banded_nw_chase(None, mlast, dlb, *geo,
@@ -438,7 +439,7 @@ class BandedNWDevice:
         """Host pointer chase over run_batch's outputs."""
         return [_traceback_one(int(batch.la[p]), int(batch.lb[p]),
                                int(batch.dlo[p]), int(batch.bw[p]),
-                               states[p], tb[:, :, p], tblast[p])
+                               states[p], tb[p], tblast[p])
                 for p in range(len(batch.la))]
 
     def align(self, pairs, band_radius: int, nucleo: bool = True

@@ -68,7 +68,15 @@ def product_dtype(device: torch.device, m_max: int,
     return torch.int8 if m_max <= INT8_MAX else torch.float16
 
 
-def _check_chunk(nuw, m, stream, boots: int, uwmax: int):
+_COUNT_MAX = {torch.int8: INT8_MAX, torch.float16: FP16_EXACT,
+              torch.float32: FP32_EXACT}
+
+
+def _check_chunk(nuw, m, stream, boots: int, uwmax: int,
+                 dtype: torch.dtype):
+    """Raise unless the chunk fits the kernel: 0 <= nuw <= uwmax, m >= 0
+    and every count (at most m) exact in `dtype`.  One wait for the
+    device."""
     dev = nuw.device
     cq = nuw.shape[0]
     check_tensor("nuw", nuw, torch.int32, 1, dev)
@@ -77,21 +85,30 @@ def _check_chunk(nuw, m, stream, boots: int, uwmax: int):
     if boots <= 0 or stream.numel() < boots:
         raise ValueError(f"stream of {stream.numel()} draws for {boots} "
                          "boots")
-    if cq and (int(nuw.min()) < 0 or int(nuw.max()) > uwmax):
+    if dtype not in _COUNT_MAX:
+        raise ValueError(f"counts of {dtype} not supported")
+    if not cq:
+        return
+    nuw_min, nuw_max, m_min, m_max = torch.stack([
+        nuw.min(), nuw.max(), m.min(), m.max()]).tolist()
+    if nuw_min < 0 or nuw_max > uwmax:
         raise ValueError(f"nuw outside 0..{uwmax}")
+    if m_min < 0 or m_max > _COUNT_MAX[dtype]:
+        raise ValueError(f"m outside 0..{_COUNT_MAX[dtype]} for {dtype}")
 
 
 def pick_hist(nuw, m, stream, boots: int, uwmax: int,
               dtype: torch.dtype) -> torch.Tensor:
     """Pick histogram P (cq, boots, uwmax) of `dtype` (product_dtype():
     float32, or int8 or float16 on the card).  nuw, m (cq,) int32; stream
-    (boots * mmax,) int32 holding the raw uint32 LCG draws."""
-    _check_chunk(nuw, m, stream, boots, uwmax)
+    (boots * mmax,) int32 holding the raw uint32 LCG draws.  On the card
+    the kernel counts tiles of P in shared memory (csrc/sintax_boot.cu)."""
+    _check_chunk(nuw, m, stream, boots, uwmax, dtype)
     dev = nuw.device
     if dev.type == "cpu":
         return pick_hist_plain(nuw, m, stream, boots, uwmax, dtype)
-    if dev.type != "cuda" or dtype not in _DTYPE_CODE:
-        raise ValueError(f"pick_hist: {dtype} on {dev} not supported")
+    if dev.type != "cuda":
+        raise ValueError(f"pick_hist: {dev} not supported")
     cq = nuw.shape[0]
     P = torch.empty((cq, boots, uwmax), dtype=dtype, device=dev)
     lib = _build.load_library()
@@ -111,7 +128,7 @@ pick_hist.launches = 0
 def pick_hist_plain(nuw, m, stream, boots: int, uwmax: int,
                     dtype: torch.dtype) -> torch.Tensor:
     """pick_hist() in PyTorch ops (sintax_device.py:125-141)."""
-    _check_chunk(nuw, m, stream, boots, uwmax)
+    _check_chunk(nuw, m, stream, boots, uwmax, dtype)
     dev = nuw.device
     cq = nuw.shape[0]
     n = stream.numel()

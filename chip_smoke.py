@@ -21,8 +21,9 @@ Phases, each printing a line, any failure exits non-zero:
   4. oracle: the row-sweep kernels of the device oracle BandedNWDevice
      (banded_nw_fwd, banded_nw_chase) bit for bit against their plain
      versions at the 65,536 pairs of 250 nt (radius 16) and at 2,048
-     pairs of 1 kb (radius 62, band 125, non-dyadic gap penalties),
-     banded_nw_fwd timed through its wrapper and alone; then
+     pairs of 1 kb (radius 62, band 125, non-dyadic gap penalties), each
+     timed through its wrapper and alone (the chase beside the floor of
+     sweeping its pairs' traceback rows by 32-byte sectors); then
      BandedNWDevice.align_device on all
      65,536 pairs of 250 nt and on the 2,048 pairs of 1 kb, whose scores
      and paths must equal those of TorchWaveAligner.align (the hole DP
@@ -57,7 +58,20 @@ Phases, each printing a line, any failure exits non-zero:
      process) and one profiled card run;
   8. perf model: the engine cost model's cold-start constants on this
      card (dispatch cost, copy rates, the slice's DP rate, the first
-     dispatch's excess in a fresh process).
+     dispatch's excess in a fresh process);
+  9. rank: the JAX package's rank_device workload (bench.py's _gen_bigdb,
+     seed 13, not cut: 220,000 targets of 250 nt from 2,000 templates,
+     2,000 queries, -id 0.9 -strand plus), indexed once into a .udb with
+     the port's -makeudb_usearch; usearch_global through the port's
+     command line with -device_rank (the CSR ranker, ops/csr_rank.py, in
+     this process) against -no_device_rank (the host ranker, a process of
+     its own) and both in this process, at the default -big
+     (UDBSearchBig) and at -big 300000 (SetTopBump): blast6 bytes equal
+     and rank_device_jobs 2,000, or the run fails; the ranker's stages on
+     one chunk (hit stream, counts, ranking and top-K), each beside its
+     bound, torch.bincount alone, and the window's wall and device time
+     (torch.profiler); both rankers as fresh processes in turns host,
+     card, card, host, for the automatic gate.
 Every kernel's time comes with its bound: the larger of the bytes it
 must move over 3.35 TB/s and its operations over the card's peak for
 their type (float32 67 TFLOP/s; the tensor cores' int8 1,979 TOP/s and
@@ -79,12 +93,14 @@ order), and its wavefront_trace_launch those of the interface version its
 wavefront_trace_interface() returns, or those of the one-thread-a-pair
 entry point where it exports none; its banded_nw_fwd_launch takes this
 tree's arguments, and writes the traceback in the layout of the version
-its banded_nw_interface() returns (1, pair-minor, where it exports none).
+its banded_nw_interface() returns (1, pair-minor, where it exports none);
+its banded_nw_chase_launch takes this tree's arguments, its ops filled
+with OP_PAD beforehand.
 Each phase prints its seconds.  The line before the last is the kernel
 summary as JSON, the last line {"ok": true, "device": {...}}.  In the
 summary `ms` is each kernel's time through its wrapper; `kernel_ms` the
 kernel alone, its outputs allocated beforehand, where this run times it
-(banded_nw_fwd and sintax_pick_hist), else null.
+(banded_nw_fwd, banded_nw_chase and sintax_pick_hist), else null.
 """
 
 import json
@@ -158,6 +174,26 @@ def gen_sintax(dbf, qf, n_targets=60000, n_queries=1500, seed=17):
             pos = rng.integers(0, len(s), 8)
             s[pos] = conv[rng.integers(0, 4, 8)]
             f.write(f">q{i}\n{s.tobytes().decode()}\n")
+
+
+def gen_bigdb(dbf, qf, n_targets=220000, n_queries=2000, seed=13):
+    """The ranking workload (recipe of bench.py's _gen_bigdb): 250-nt
+    targets, each one of 2,000 templates with 8 substitutions; each query
+    the template q % 2000 with 12."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    conv = np.frombuffer(b"ACGT", np.uint8)
+    tpls = [conv[rng.integers(0, 4, 250)] for _ in range(2000)]
+    with open(dbf, "w") as f:
+        for t in range(n_targets):
+            s = tpls[t % 2000].copy()
+            s[rng.integers(0, 250, 8)] = conv[rng.integers(0, 4, 8)]
+            f.write(f">t{t}\n{s.tobytes().decode()}\n")
+    with open(qf, "w") as f:
+        for q in range(n_queries):
+            s = tpls[q % 2000].copy()
+            s[rng.integers(0, 250, 12)] = conv[rng.integers(0, 4, 12)]
+            f.write(f">q{q}\n{s.tobytes().decode()}\n")
 
 
 def kernel_pairs(rng, n, length, sub_rate=0.1, indel=8):
@@ -415,18 +451,27 @@ def banded_outs(version, ins):
             torch.empty(P, dtype=torch.float32, device=dev))
 
 
-def raw_banded_chase(lib, outs, ins, stride):
+def chase_outs(mlast, stride):
+    """Outputs of banded_nw_chase (scores, states, tblast, ops), ops every
+    byte OP_PAD as the entry points before the redesign needed them."""
+    import torch
+    P, W = mlast.shape
+    dev = mlast.device
+    return (torch.empty(P, dtype=torch.float32, device=dev),
+            torch.empty(P, dtype=torch.uint8, device=dev),
+            torch.empty((P, W), dtype=torch.uint8, device=dev),
+            torch.full((P, stride), 0xFF, dtype=torch.uint8, device=dev))
+
+
+def raw_banded_chase(lib, outs, ins, stride, res=None):
     """One launch of a banded_nw_chase_launch entry point on forward
-    outputs `outs` (tb in that entry point's layout)."""
+    outputs `outs` (tb in that entry point's layout), into `res`
+    (chase_outs', allocated beforehand) or new outputs."""
     import torch
     tb, mlast, dlb = outs
     la, lb, dlo, bw, gp = ins[2:7]
     P, W = mlast.shape
-    dev = mlast.device
-    res = (torch.empty(P, dtype=torch.float32, device=dev),
-           torch.empty(P, dtype=torch.uint8, device=dev),
-           torch.empty((P, W), dtype=torch.uint8, device=dev),
-           torch.full((P, stride), 0xFF, dtype=torch.uint8, device=dev))
+    res = chase_outs(mlast, stride) if res is None else res
     err = lib.banded_nw_chase_launch(
         tb.data_ptr(), ins[0].shape[1], mlast.data_ptr(), W, dlb.data_ptr(),
         la.data_ptr(), lb.data_ptr(), dlo.data_ptr(), bw.data_ptr(),
@@ -435,6 +480,16 @@ def raw_banded_chase(lib, outs, ins, stride):
     if err != 0:
         fail(f"banded_nw_chase_launch returned CUDA error {err}")
     return res
+
+
+def chase_geometry(lib, n_pairs, width, stride):
+    """banded_nw_chase's launch geometry as text: pairs a warp, rows a
+    window, bytes a slot, shared memory a block."""
+    import ctypes
+    geo = (ctypes.c_int * 3)()
+    smem = lib.banded_nw_chase_geometry(n_pairs, width, stride, 1, geo)
+    return (f"{geo[0]} pairs a warp, {geo[1]} rows a window, {geo[2]} "
+            f"bytes a slot, {smem} bytes of shared memory a block")
 
 
 def in_turns(runs, reps, order=("other", "this", "this", "other")):
@@ -474,10 +529,12 @@ def compare_banded(tag, ins, other, reps):
         if not bit_equal(x, y):
             fail(f"against oracle {tag}: banded_nw_chase {name} differs "
                  "from the other checkout's")
+    # outputs allocated beforehand: each launch writes the same bytes
     chase = in_turns({"other": lambda: raw_banded_chase(lib, o_out, ins,
-                                                          stride),
+                                                          stride, o_ch),
                       "this": lambda: raw_banded_chase(this, t_out, ins,
-                                                         stride)}, reps)
+                                                         stride, t_ch)},
+                     reps)
     print(f"against oracle {tag}: kernels alone, ms, banded_nw_fwd "
           f"{json.dumps(fwd)}, banded_nw_chase (each on its own tb layout) "
           f"{json.dumps(chase)}; bit-equal; clocks {clocks()}", flush=True)
@@ -531,9 +588,13 @@ def check_banded(tag, pairs, radius, ap, dev, reps, other=None):
     stride = ch[3].shape[1]
     ch_plain_ms, ch_plain = cuda_ms(lambda: bn.banded_nw_chase_plain(
         tb, mlast, dlb, *geo, gp, stride), 1, warm=False)
-    for name, x, y in zip(("scores", "states", "tblast", "ops"), ch,
-                          ch_plain):
-        if not bit_equal(x, y):
+    # the kernel alone, outputs allocated beforehand
+    ch_res = chase_outs(mlast, stride)
+    ch_alone, _ = cuda_ms(lambda: raw_banded_chase(lib, fwd, ins, stride,
+                                                   ch_res), reps)
+    for name, x, y, z in zip(("scores", "states", "tblast", "ops"), ch,
+                             ch_plain, ch_res):
+        if not (bit_equal(x, y) and bit_equal(z, y)):
             fail(f"oracle {tag}: banded_nw_chase {name} differs from its "
                  "plain version")
     if not torch.isfinite(ch[0]).all():
@@ -549,21 +610,32 @@ def check_banded(tag, pairs, radius, ap, dev, reps, other=None):
                     for k in range(4)))
     ch_b = bound(steps + nbytes_of(mlast, dlb, *geo, gp, *ch),
                  3 * int(batch.lb.sum()) + 4 * steps)
+    # the floor of a sweep: every 32-byte sector of each pair's traceback
+    # rows 0 .. la - 1, which the path visits one after another
+    row_bytes = tb.shape[2]
+    first = (torch.arange(len(pairs), device=dev, dtype=torch.int64)
+             * tb.shape[1] * row_bytes)
+    last = first + geo[0].to(torch.int64) * row_bytes - 1
+    sectors = int(((last >> 5) - (first >> 5) + 1).sum())
+    sweep_ms = bound(32 * sectors + nbytes_of(mlast, dlb, *geo, gp, *ch),
+                     0)[0]
     print(f"oracle {tag}: {len(pairs)} pairs, {cells} cells, band "
           f"{width}; banded_nw_fwd {fwd_ms:.3f} ms through the wrapper, "
           f"{alone:.3f} ms alone ({cells / alone / 1e6:.2f} Gcells/s, "
           f"bound {fwd_b[0]:.4f} ms by {fwd_b[1]}; {cells_a_part} cells a "
           f"part), plain {fwd_plain_ms:.1f} ms; banded_nw_chase "
-          f"{ch_ms:.3f} ms ({cells / ch_ms / 1e6:.2f} Gcells/s, bound "
-          f"{ch_b[0]:.4f} ms by "
-          f"{ch_b[1]}), plain {ch_plain_ms:.1f} ms; bit-equal to plain; "
+          f"{ch_ms:.3f} ms through the wrapper, {ch_alone:.3f} ms alone "
+          f"(bound {ch_b[0]:.4f} ms by {ch_b[1]}, the sectors of a sweep "
+          f"{sweep_ms:.4f} ms; {chase_geometry(lib, len(pairs), width, stride)}"
+          f"), plain {ch_plain_ms:.1f} ms; bit-equal to plain; "
           f"clocks {clocks()}", flush=True)
     out = {"fwd_ms": fwd_ms, "fwd_kernel_ms": alone,
            "fwd_plain_ms": fwd_plain_ms, "fwd_err": fwd_err,
-           "fwd_bound": fwd_b, "chase_ms": ch_ms,
+           "fwd_bound": fwd_b, "chase_ms": ch_ms, "chase_kernel_ms": ch_alone,
+           "chase_sweep_ms": sweep_ms,
            "chase_plain_ms": ch_plain_ms, "chase_bound": ch_b,
            "chase_err": float((ch[0] - ch_plain[0]).abs().max())}
-    del fwd, tb, ch, ch_plain
+    del fwd, tb, ch, ch_plain, ch_res
     if other is not None:
         compare_banded(tag, ins, other, reps)
     return out
@@ -1300,6 +1372,186 @@ def phase_sintax(d, dev, phase_done, other_hist=None):
     return sx, launches
 
 
+def rank_stages(udb, qf, big_opts, dev):
+    """The ranker's stages (ops/csr_rank.py) on the first chunk of the
+    workload's queries, each timed with CUDA events beside its bound, and
+    the whole ranking of the 2,000 queries profiled.  Returns the stage
+    times and bounds."""
+    import numpy as np
+    import torch
+    from usearch12_tpu_torch import cli
+    from usearch12_tpu_torch.commands import load_db
+    from usearch12_tpu_torch.io.fastx import read_fastx
+    from usearch12_tpu_torch.ops.csr_rank import CSRDeviceRanker
+    cli.parse_argv(["-usearch_global", qf, "-db", udb, "-id", "0.9",
+                    "-strand", "plus", "-quiet"] + big_opts)
+    _db, index = load_db(udb)
+    seqs = [s for _l, s, _q in read_fastx(qf, stream=True)]
+    jbuf = np.ascontiguousarray(np.concatenate(seqs))
+    j_off = np.zeros(len(seqs) + 1, np.int64)
+    np.cumsum([len(x) for x in seqs], out=j_off[1:])
+    ranker = CSRDeviceRanker(index, dev)
+    _n, chunks, _over = ranker.prepare_chunks(jbuf, j_off)
+    _lo, _hi, qw, cap = chunks[0]
+    q = torch.from_numpy(qw).to(dev)
+    hits_ms, hits = cuda_ms(lambda: ranker.hits(q, cap), 10)
+    count_ms, count = cuda_ms(lambda: ranker.counts(hits), 10)
+    if ranker.big:
+        rank_ms, _ = cuda_ms(lambda: ranker.rank_big(count, hits), 10)
+    else:
+        rank_ms, _ = cuda_ms(lambda: ranker.rank_sorted(count), 10)
+    TP = count.shape[1]
+    rows = torch.arange(q.shape[0], device=dev)[:, None] * TP
+    lib_ms, _ = cuda_ms(lambda: torch.bincount((rows + hits).reshape(-1),
+                                               minlength=count.numel()), 10)
+    # bytes: the postings each stream position gathers (int32) and the
+    # stream written; the stream read and the count rows written; the
+    # count rows read (and, in big mode, the stream and a first-touch row
+    # written and read)
+    n_pos = int((hits < ranker.t).sum())
+    b_hits = bound(4 * n_pos + nbytes_of(q, hits), 0)
+    b_count = bound(nbytes_of(hits, count), 0)
+    b_rank = bound(nbytes_of(count) * (3 if ranker.big else 1)
+                   + (nbytes_of(hits) if ranker.big else 0), 0)
+    # the window's wall time with the ranker warm, then its device time
+    # (a profiler's first session in a process takes seconds to start)
+    t0 = time.perf_counter()
+    ranker.rank_window(jbuf, j_off)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        ranker.rank_window(jbuf, j_off)
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "device_time_total",
+                       getattr(e, "cuda_time_total", 0.0))
+    evs = sorted((e for e in prof.key_averages() if dev_us(e) > 0
+                  and not e.key.startswith("aten::")), key=dev_us,
+                 reverse=True)
+    device_ms = sum(map(dev_us, evs)) / 1000
+    top = [(e.key[:40], round(dev_us(e) / 1000, 3), e.count) for e in evs[:6]]
+    mode = "big (UDBSearchBig)" if ranker.big else "SetTopBump"
+    print(f"rank stages, {mode}: one chunk of {q.shape[0]} queries, "
+          f"{n_pos} hits (cap {cap}), {TP} count columns; hits "
+          f"{hits_ms:.4f} ms (bound {b_hits[0]:.4f}), counts {count_ms:.4f} "
+          f"ms (bound {b_count[0]:.4f}; torch.bincount alone {lib_ms:.4f}), "
+          f"rank and top-K {rank_ms:.4f} ms (bound {b_rank[0]:.4f}); the "
+          f"window of {len(seqs)} queries in {len(chunks)} chunks: "
+          f"{wall:.3f} s wall, {device_ms:.3f} ms device, top {top}",
+          flush=True)
+    return {"hits_ms": hits_ms, "count_ms": count_ms, "rank_ms": rank_ms,
+            "bincount_ms": lib_ms, "bounds": (b_hits[0], b_count[0],
+                                              b_rank[0]),
+            "chunks": len(chunks), "device_ms": device_ms, "wall_s": wall}
+
+
+def phase_rank(d, dev, phase_done):
+    """Phase 9 in directory d: the ranking workload through the port's
+    command line, -device_rank against -no_device_rank (a process of its
+    own, the judge, and in this process), at the default -big (big mode)
+    and at -big 300000 (SetTopBump); the ranker's stages; both rankers as
+    fresh processes in turns, for the automatic gate.  Returns the
+    numbers."""
+    import torch
+    from usearch12_tpu_torch import cli
+    t_phase = time.perf_counter()
+    dbf, qf, udb = (os.path.join(d, x) for x in ("bigdb.fa", "bigq.fa",
+                                                 "bigdb.udb"))
+    t0 = time.perf_counter()
+    gen_bigdb(dbf, qf)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if cli.main(["-makeudb_usearch", dbf, "-output", udb, "-quiet"]) != 0:
+        fail("makeudb_usearch of the ranking workload failed")
+    print(f"rank: 220,000 targets x 2,000 queries of 250 nt written in "
+          f"{t_gen:.1f} s, indexed in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    base = ["-usearch_global", qf, "-db", udb, "-id", "0.9", "-strand",
+            "plus", "-quiet"]
+    stats = os.path.join(d, "rank_stats.jsonl")
+    out = {}
+    for tag, big_opts in (("big", []), ("sorted", ["-big", "300000"])):
+        ref, port, port_host = (os.path.join(d, f"rank_{tag}_{x}.b6")
+                                for x in ("host", "card", "card_host"))
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "usearch12_tpu_torch.cli"]
+                           + base + big_opts + ["-no_device_rank",
+                                                "-blast6out", ref],
+                           cwd=HERE, capture_output=True, text=True,
+                           timeout=600)
+        t_host = time.perf_counter() - t0
+        if r.returncode != 0:
+            fail(f"rank host judge exited {r.returncode}: "
+                 f"{r.stderr[-2000:]}")
+        # both rankers in this process (torch loaded, the card warm):
+        # the host's, then the card's, whose launches are counted
+        t0 = time.perf_counter()
+        rc = cli.main(base + big_opts + ["-no_device_rank", "-blast6out",
+                                         port_host])
+        t_host_in = time.perf_counter() - t0
+        os.environ["USEARCH_DEVICE_STATS"] = stats
+        try:
+            t0 = time.perf_counter()
+            rc |= cli.main(base + big_opts + ["-device_rank", "-blast6out",
+                                              port])
+            torch.cuda.synchronize()
+            t_card = time.perf_counter() - t0
+        finally:
+            os.environ.pop("USEARCH_DEVICE_STATS", None)
+        with open(ref, "rb") as f:
+            ref_b = f.read()
+        with open(port, "rb") as f:
+            port_b = f.read()
+        with open(port_host, "rb") as f:
+            port_b = port_b if f.read() == port_b else b""
+        with open(stats) as f:
+            ds = json.loads(f.read().splitlines()[-1])
+        n_hits = ref_b.count(b"\n")
+        print(f"rank {tag}: host ranker (a process) {t_host:.2f} s; in "
+              f"process, host ranker {t_host_in:.2f} s, card ranker "
+              f"{t_card:.2f} s; rank_device_jobs "
+              f"{ds['rank_device_jobs']}, rank_host_rerank_jobs "
+              f"{ds['rank_host_rerank_jobs']}; {n_hits} hits, "
+              f"blast6 {'equal' if ref_b == port_b else 'DIFFERENT'}",
+              flush=True)
+        if rc != 0 or ref_b != port_b or not ref_b:
+            fail(f"rank {tag}: -device_rank's blast6 differs from the host "
+                 "ranker's")
+        if ds["rank_device_jobs"] != 2000:
+            fail(f"rank {tag}: rank_device_jobs {ds['rank_device_jobs']}, "
+                 "not the 2,000 jobs")
+        out[tag] = {"host_s": t_host, "host_in_s": t_host_in,
+                    "card_s": t_card, **rank_stages(udb, qf, big_opts, dev)}
+        if tag == "big":
+            # the automatic gate: both rankers as fresh processes, in the
+            # turns host (the judge above), card, card, host
+            gate = {"-no_device_rank": [t_host], "-device_rank": []}
+            for flag in ("-device_rank", "-device_rank", "-no_device_rank"):
+                t0 = time.perf_counter()
+                r = subprocess.run(
+                    [sys.executable, "-m", "usearch12_tpu_torch.cli"] + base
+                    + [flag, "-blast6out", port], cwd=HERE,
+                    capture_output=True, text=True, timeout=600)
+                gate[flag].append(time.perf_counter() - t0)
+                with open(port, "rb") as f:
+                    same = f.read() == ref_b
+                if r.returncode != 0 or not same:
+                    fail(f"rank gate: {flag} exited {r.returncode} or its "
+                         f"blast6 differs: {r.stderr[-2000:]}")
+            out["gate"] = gate
+            print(f"rank gate: 220,000 targets as fresh processes, in turns "
+                  f"host, card, card, host; host ranker "
+                  f"{[round(x, 2) for x in gate['-no_device_rank']]} s, card "
+                  f"ranker {[round(x, 2) for x in gate['-device_rank']]} s; "
+                  f"blast6 equal", flush=True)
+    phase_done(9, t_phase)
+    return out
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "usearch12_tpu_torch")):
         fail("run from a checkout of the repository (no "
@@ -1534,6 +1786,10 @@ def main():
     perf_constants(dev, ap, dev_rate)
     phase_done(8, t_phase)
 
+    # 9. usearch_global's ranking on the card
+    with tempfile.TemporaryDirectory() as d:
+        phase_rank(d, dev, phase_done)
+
     def row(name, source, replaces, n, err, ms, plain_ms, bnd,
             library_ms=None, kernel_ms=None):
         return {"name": name, "route": "cuda",
@@ -1563,7 +1819,8 @@ def main():
             "usearch12_tpu/ops/banded_nw.py:569",
             orc_launches["banded_nw_chase"],
             max(orc["chase_err"], orc_wide["chase_err"]), orc["chase_ms"],
-            orc["chase_plain_ms"], orc["chase_bound"]),
+            orc["chase_plain_ms"], orc["chase_bound"],
+            kernel_ms=orc["chase_kernel_ms"]),
         row("sintax_pick_hist", "sintax_boot.cu",
             "usearch12_tpu/amplicon/sintax_device.py:132",
             sx_launches["sintax_pick_hist"], sx["hist_err"], sx["hist_ms"],

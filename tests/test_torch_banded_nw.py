@@ -516,3 +516,294 @@ def test_fwd_cells_rule():
         assert 2 * lanes * kernel_cells(w) >= w and lanes * pairs <= 32
         assert ring >= FLUSH_ROWS + lanes - 1
         assert ring % FLUSH_ROWS == 0
+
+
+# banded_nw_chase's kernel constants, read from its source like the ones
+# above: windows a ring, the most bytes of a slot and of a warp's rings,
+# the fewest warps a launch is cut into, the most shared memory a block
+CHASE = {k: int(eval(re.search(rf"#define BNC_{k} ([\d ()*]+)\n", _CU)[1]))
+         for k in ("SLOTS", "SLOT_MAX", "RING_WARP", "MIN_WARPS",
+                   "SMEM_MAX")}
+
+
+def _next_state(st, bits):
+    if st == bn.OP_M:
+        return bn.OP_D if bits & bn.TB_DM else (
+            bn.OP_I if bits & bn.TB_IM else bn.OP_M)
+    if st == bn.OP_D:
+        return bn.OP_M if bits & bn.TB_MD else bn.OP_D
+    return bn.OP_M if bits & bn.TB_MI else bn.OP_I
+
+
+# the kernel's 2-bit tables of the next state, by state and bits
+_TABLES = {bn.OP_M: 0x64646464, bn.OP_D: 0x00550055, bn.OP_I: 0x0000aaaa}
+NEXT = {st: [(t >> (2 * b)) & 3 for b in range(16)]
+        for st, t in _TABLES.items()}
+assert all(NEXT[st][b] == _next_state(st, b) for st in NEXT
+           for b in range(16))
+
+
+def chase_geometry(P, W, stride, with_tb, min_warps=None):
+    """(pairs a warp G, rows a window R, bytes a slot, shared memory a
+    block: the slots' mbarriers, the rings, the scratch area) of
+    banded_nw_chase's kernel (csrc/banded_nw.cu
+    banded_nw_chase_geometry); None where one pair does not fit."""
+    min_warps = CHASE["MIN_WARPS"] if min_warps is None else min_warps
+    RB, S = W + 1, CHASE["SLOTS"]
+    G = 32
+    while G >= 1:
+        if G == 1 or -(-P // G) >= min_warps:
+            R = slot = 0
+            if with_tb:
+                room = min(CHASE["RING_WARP"] // (S * G),
+                           CHASE["SLOT_MAX"]) & ~15
+                R = max(2, (room - 15) // RB)
+                slot = (R * RB + 30) & ~15
+            scratch = G * W * 5
+            if with_tb:
+                scratch = max(scratch, G * stride)
+            head = (G * S * 8 + 15) & ~15 if with_tb else 0
+            smem = head + G * S * slot + ((scratch + 15) & ~15)
+            if smem <= CHASE["SMEM_MAX"]:
+                return G, R, slot, smem
+        G //= 2
+    return None
+
+
+def chase_window_model(tb, mlast, dlb, la, lb, dlo, bw, gp, stride,
+                       min_warps=None):
+    """banded_nw_chase's kernel (csrc/banded_nw.cu), warp by warp and lane
+    by lane: G pairs a warp; each pair's windows of R rows copied top down
+    into a ring of SLOTS slots, one copy a window from the 16-byte
+    boundary at or below its first byte, rounded up to 16 bytes but not
+    past tb's last 16-byte boundary, the bytes beyond that one by one;
+    window e + SLOTS - 1 issued into the slot of window e - 1 at the start
+    of epoch e; every lane chases in window e until it needs a row below
+    it, inside the matrix by the kernel's fixed steps of the band cell and
+    the row's address (asserted against their direct computation) and the
+    next state from its 2-bit tables.  Asserts that every byte a lane
+    reads is in the slot of the
+    window of its epoch, which holds that window, inside the bytes copied
+    for it, and is the traceback byte the chase wants.  tb None: the
+    final row only.  Returns (scores, states, tblast, ops) as numpy
+    arrays."""
+    f32 = np.float32
+    P, W = mlast.shape
+    RB, S = W + 1, CHASE["SLOTS"]
+    with_tb = tb is not None
+    G, R, slot, _ = chase_geometry(P, W, stride, with_tb, min_warps)
+    la, lb, dlo, bw = (np.asarray(x, np.int64) for x in (la, lb, dlo, bw))
+    r_open_a, r_ext_a = f32(gp[6]), f32(gp[10])
+    amax = tb.shape[1] if with_tb else 0
+    flat = tb.reshape(-1) if with_tb else None
+    ml, dl = np.asarray(mlast, f32), np.asarray(dlb, f32)
+    scores = np.full(P, np.nan, f32)
+    states = np.full(P, 0xEE, np.uint8)
+    tblast = np.full((P, W), 0xEE, np.uint8)
+    ops = np.full((P, stride), 0xEE, np.uint8)
+    neg = f32(bn.NEG)
+    for p0 in range(0, P, G):
+        n_live = min(G, P - p0)
+        ring = np.full(G * S * slot, 0xEE, np.uint8)
+        held = {}                     # (g, slot index) -> (window, bytes)
+
+        def issue(e):
+            for g in range(n_live):
+                hi = int(la[p0 + g]) - 1 - e * R
+                if hi < 0:
+                    continue
+                lo = max(0, hi - R + 1)
+                gs = ((p0 + g) * amax + lo) * RB
+                ga = gs & ~15
+                want = (gs - ga) + (hi - lo + 1) * RB
+                n_bulk = min((want + 15) & ~15, (flat.size - ga) & ~15)
+                assert n_bulk % 16 == 0 and max(n_bulk, want) <= slot
+                dst = (g * S + e % S) * slot
+                ring[dst:dst + slot] = 0xEE
+                # the bulk copy, then the bytes past its end singly
+                ring[dst:dst + n_bulk] = flat[ga:ga + n_bulk]
+                ring[dst + n_bulk:dst + want] = flat[ga + n_bulk:ga + want]
+                held[(g, e % S)] = (e, max(n_bulk, want))
+
+        if with_tb:
+            for e in range(S - 1):
+                issue(e)
+        jstar = np.full(n_live, -1)
+        st = np.zeros(n_live, np.int64)
+        for g in range(n_live):
+            p = p0 + g
+            i1 = neg
+            n_last = lb[p] - dlo[p] + 1
+            for k in range(W):
+                bit = 0
+                if k < n_last:
+                    mi = (neg if k == 0 else ml[p, k - 1]) + r_open_a
+                    i1 = f32(i1 + r_ext_a)
+                    if mi > i1:
+                        i1, bit, jstar[g] = mi, bn.TB_MI, dlo[p] - 1 + k
+                tblast[p, k] = bit
+            score = ml[p, lb[p] - dlo[p]]
+            if dl[p] > score:
+                score, st[g] = dl[p], bn.OP_D
+            if i1 > score:
+                score, st[g] = i1, bn.OP_I
+            scores[p], states[p] = score, st[g]
+        if not with_tb:
+            continue
+        codes = [[] for _ in range(n_live)]
+        pos = [(int(la[p0 + g]), int(lb[p0 + g])) for g in range(n_live)]
+
+        def alive(g):
+            i, j = pos[g]
+            return (i > 0 or j > 0) and i >= 0 and j >= 0 and \
+                len(codes[g]) < 4 * stride
+
+        e = 0
+        while True:
+            issue(e + S - 1)
+            for g in range(n_live):
+                p = p0 + g
+                hi = int(la[p]) - 1 - e * R
+                lo = max(0, hi - R + 1)
+                gs = (p * amax + lo) * RB
+                base = (g * S + e % S) * slot
+                sb = base + (gs & 15) - lo * RB
+                def read(ri, addr, k):
+                    """The byte at shared address addr, row ri, cell k."""
+                    win, n_bytes = held[(g, e % S)]
+                    assert win == e and lo <= ri <= hi
+                    assert base <= addr < base + n_bytes
+                    assert ring[addr] == flat[(p * amax + ri) * RB + k]
+                    return int(ring[addr])
+
+                while alive(g):
+                    i, j = pos[g]
+                    if lo < i < la[p] and 0 < j < lb[p]:
+                        # the kernel's interior loop: k and the row's
+                        # address move by fixed steps
+                        k = j - i + la[p] - dlo[p]
+                        row = sb + i * RB
+                        while True:
+                            s_ = st[g]
+                            codes[g].append(s_)
+                            sd, si = s_ == bn.OP_D, s_ == bn.OP_I
+                            k += 1 if sd else (-1 if si else 0)
+                            row -= 0 if si else RB
+                            i -= not si
+                            j -= not sd
+                            # (i, j) is the landing cell now
+                            assert k == j - (dlo[p] + i - la[p])
+                            assert row == sb + i * RB
+                            if 0 <= k < bw[p]:
+                                bits = read(i, row + k, k)
+                            else:
+                                bits = bn.TB_IM if k == -1 else 0
+                            st[g] = NEXT[s_][bits]
+                            pos[g] = (i, j)
+                            if not (lo < i < la[p] and 0 < j < lb[p]
+                                    and len(codes[g]) < 4 * stride):
+                                break
+                        continue
+                    s_ = st[g]
+                    ri = i if s_ == bn.OP_I else i - 1
+                    rj = j if s_ == bn.OP_D else j - 1
+                    in_tb = ri >= 0 and rj >= 0 and ri < la[p]
+                    if in_tb and ri < lo:
+                        assert ri == lo - 1
+                        break
+                    codes[g].append(s_)
+                    bits = 0
+                    if in_tb:
+                        k = rj - (dlo[p] + ri - la[p])
+                        if rj == lb[p]:
+                            bits = read(ri, sb + ri * RB + W, W)
+                        elif k == -1:
+                            bits = bn.TB_IM
+                        elif 0 <= k < bw[p]:
+                            bits = read(ri, sb + ri * RB + k, k)
+                    elif ri == la[p] and rj >= 0:
+                        assert s_ == bn.OP_I
+                        bits = bn.TB_MI if rj == jstar[g] else 0
+                    st[g] = NEXT[s_][bits]
+                    pos[g] = (ri, rj)
+            if not any(alive(g) for g in range(n_live)):
+                break
+            e += 1
+        for g in range(n_live):
+            c = np.full(4 * stride, bn.OP_PAD, np.uint8)
+            c[:len(codes[g])] = codes[g]
+            ops[p0 + g] = c[0::4] | (c[1::4] << 2) | (c[2::4] << 4) | \
+                (c[3::4] << 6)
+    return scores, states, tblast, (ops if with_tb else None)
+
+
+def assert_chase_model_matches(pairs, radius, ap, min_warps=None):
+    """The chase model's outputs bit-equal to banded_nw_chase_plain's,
+    with and without the traceback."""
+    batch = bn.pack_pairs(pairs, True, radius)
+    gp = gap_params(ap)
+    args = [torch.from_numpy(x) for x in (batch.a_let, batch.b_let, batch.la,
+                                         batch.lb, batch.dlo, batch.bw)]
+    tb, mlast, dlb = bn.banded_nw_fwd(*args, gp, *bn.match_mismatch(ap))
+    stride = (int((batch.la + batch.lb).max()) + 3) // 4
+    for t in (tb, None):
+        want = bn.banded_nw_chase_plain(t, mlast, dlb, *args[2:], gp, stride)
+        got = chase_window_model(None if t is None else t.numpy(),
+                                 mlast.numpy(), dlb.numpy(), batch.la,
+                                 batch.lb, batch.dlo, batch.bw, gp.numpy(),
+                                 stride, min_warps)
+        for name, x, y in zip(("scores", "states", "tblast", "ops"), got,
+                              want):
+            if y is None:
+                assert x is None
+                continue
+            y = y.numpy()
+            if y.dtype == np.float32:
+                x, y = x.view(np.uint32), y.view(np.uint32)
+            assert np.array_equal(x, y), name
+
+
+@pytest.mark.parametrize("bw", [1, 2, 33, 64, 125, 126])
+def test_chase_model_at_band(bw):
+    """Windows of every width the geometry gives, 32 pairs a warp (a
+    second warp part full), pairs of different la in one warp, la > lb,
+    la < lb and la == lb, a window that ends at tb's last byte."""
+    rng = np.random.default_rng(100 + bw)
+    pairs = band_pairs(rng, 37, bw, lmin=max(bw, 2), lmax=160)
+    # the longest last: its top window ends at tb's last byte
+    pairs.sort(key=lambda x: len(x[0]))
+    assert_chase_model_matches(pairs, 0, nucleo_params(*NON_DYADIC),
+                               min_warps=1)
+
+
+@pytest.mark.parametrize("pen", [DYADIC, NON_DYADIC])
+def test_chase_model_lopsided(pen):
+    """Main-diagonal bands of pairs much longer on one side (long final-row
+    and Drow[LB] runs), N letters, one pair a warp and 32."""
+    rng = np.random.default_rng(21)
+    pairs = rand_pairs(rng, 12, 20, 120, dl=12, n_rate=0.05, lower=0.2)
+    pairs += [(a[:max(1, len(a) // 3)], b) for a, b in pairs[:4]]
+    pairs += [(a, b[:max(1, len(b) // 3)]) for a, b in pairs[4:8]]
+    for min_warps in (None, 1):
+        assert_chase_model_matches(pairs, 20, nucleo_params(*pen), min_warps)
+
+
+def test_chase_geometry():
+    """The launch geometry at phase 4's shapes and at the limits: every
+    window fits its slot, a block's shared memory stays in bounds, and
+    a launch has BNC_MIN_WARPS warps wherever pairs a warp can halve."""
+    assert chase_geometry(65536, 33, 65, True)[:3] == (32, 14, 496)
+    assert chase_geometry(2048, 125, 500, True)[:3] == (2, 32, 4048)
+    assert chase_geometry(1, 126, 10, True)[0] == 1
+    for W in (1, 2, 33, 125, 126):
+        for P in (1, 100, 2048, 65536):
+            for with_tb in (True, False):
+                G, R, slot, smem = chase_geometry(P, W, 64, with_tb)
+                assert smem <= CHASE["SMEM_MAX"]
+                assert G == 1 or -(-P // G) >= CHASE["MIN_WARPS"]
+                if with_tb:
+                    assert R >= 2 and slot % 16 == 0
+                    assert -(-(15 + R * (W + 1)) // 16) * 16 <= slot
+    # paths up to the shared memory's limit
+    assert chase_geometry(1, 126, 150000, True) is not None
+    assert chase_geometry(1, 126, 200000, True) is None

@@ -322,6 +322,66 @@ def test_banded_nw_fwd_every_cells(card, bw):
     assert all(_bit_equal(x, y) for x, y in zip(got, plain))
 
 
+def _assert_chase_matches_plain(card, pairs, radius, ap):
+    """banded_nw_chase's kernel through its wrapper, with and without the
+    traceback, bit-equal to banded_nw_chase_plain on the forward kernel's
+    outputs; returns the launch's pairs a warp."""
+    from usearch12_tpu_torch import _build
+    from usearch12_tpu_torch.ops import banded_nw as bn
+    import ctypes
+    batch = bn.pack_pairs(pairs, True, radius)
+    args = tuple(torch.from_numpy(x).to(card) for x in (
+        batch.a_let, batch.b_let, batch.la, batch.lb, batch.dlo, batch.bw))
+    gp = wnw.gap_params(ap).to(card)
+    tb, mlast, dlb = bn.banded_nw_fwd(*args, gp, *wnw.match_mismatch(ap))
+    stride = (int((batch.la + batch.lb).max()) + 3) // 4
+    for t in (tb, None):
+        n0 = bn.banded_nw_chase.launches
+        got = bn.banded_nw_chase(t, mlast, dlb, *args[2:], gp)
+        assert bn.banded_nw_chase.launches == n0 + 1
+        want = bn.banded_nw_chase_plain(t, mlast, dlb, *args[2:], gp, stride)
+        torch.cuda.synchronize()
+        for x, y in zip(got, want):
+            assert (x is None and y is None) or _bit_equal(x, y)
+    geo = (ctypes.c_int * 3)()
+    assert _build.load_library().banded_nw_chase_geometry(
+        len(pairs), mlast.shape[1], stride, 1, geo) > 0
+    return geo[0]
+
+
+@pytest.mark.parametrize("bw,n", [(1, 203), (2, 203), (33, 203), (64, 203),
+                                  (121, 203), (126, 203), (33, 66000),
+                                  (126, 66000)])
+def test_banded_nw_chase_every_band(card, bw, n):
+    """The chase kernel at bands 1-126, one pair a warp (203 pairs) and 32
+    (66,000), pairs of several la in one warp, la > lb, la < lb, la ==
+    lb, the last pair's top window ending at tb's last byte."""
+    pairs = _band_pairs(np.random.default_rng(bw + n), n, bw)
+    # the longest last: its top window ends at tb's last byte
+    pairs.sort(key=lambda x: len(x[0]))
+    G = _assert_chase_matches_plain(
+        card, pairs, 0, wnw.nucleo_params(-10.3, -1.1, -0.7, -0.4))
+    assert G == (32 if n == 66000 else 1)
+
+
+@pytest.mark.parametrize("n", [97, 40000])
+def test_banded_nw_chase_lopsided(card, n):
+    """Main-diagonal bands of pairs three times longer on one side than
+    the other (long final-row and Drow[LB] runs), radius 20."""
+    rng = np.random.default_rng(n)
+    conv = np.frombuffer(b"ACGT", np.uint8)
+    pairs = []
+    for k in range(n):
+        la = int(rng.integers(30, 120))
+        a = conv[rng.integers(0, 4, la)]
+        b = a.copy()
+        b[rng.random(la) < 0.1] = conv[rng.integers(0, 4)]
+        short = max(1, la // 3)
+        pairs.append((a[:short], b) if k % 2 else (a, b[:short]))
+    _assert_chase_matches_plain(card, pairs, 20,
+                                wnw.nucleo_params(-10.0, -1.0, -0.5, -0.5))
+
+
 def _hist_chunk(rng, cq, boots, uwmax, m_val, short):
     nuw = rng.integers(1, uwmax + 1, cq).astype(np.int32)
     nuw[:2] = (0, 1)
@@ -377,3 +437,47 @@ def test_pick_hist_rows_past_shared_memory(card, uwmax, dtype):
                               dtype)
     torch.cuda.synchronize()
     assert torch.equal(got, want) and int(want[4].sum()) == boots * m_val
+
+
+@pytest.mark.parametrize("extra", [[], ["-big", "10"],
+                                   ["-big", "10", "-stepwords", "0"]])
+def test_csr_ranker_on_card_matches_cpu(card, tmp_path, extra):
+    """The CSR ranker's torch ops on the card equal their CPU run, below
+    -big (SetTopBump) and above it (UDBSearchBig)."""
+    from usearch12_tpu_torch.cli import parse_argv
+    from usearch12_tpu_torch.index.udb import UDBIndex
+    from usearch12_tpu_torch.io.fastx import read_fastx
+    from usearch12_tpu_torch.io.seqdb import SeqDB
+    from usearch12_tpu_torch.ops.csr_rank import CSRDeviceRanker
+    # 80 templates of 200 nt, 5 copies of each with 1-8 substitutions: 300
+    # targets and 100 queries
+    rng = np.random.default_rng(43)
+    conv = np.frombuffer(b"ACGT", np.uint8)
+    recs = []
+    for t in range(80):
+        tpl = conv[rng.integers(0, 4, 200)]
+        for k in range(5):
+            s = tpl.copy()
+            n = int(rng.integers(1, 9))
+            s[rng.integers(0, 200, n)] = conv[rng.integers(0, 4, n)]
+            recs.append(s.tobytes().decode())
+    order = rng.permutation(len(recs))
+    db_fa, q_fa = str(tmp_path / "db.fa"), str(tmp_path / "q.fa")
+    for path, part in ((db_fa, order[:300]), (q_fa, order[300:])):
+        with open(path, "w") as f:
+            f.writelines(f">s{i}\n{recs[i]}\n" for i in part)
+    parse_argv(["-usearch_global", q_fa, "-db", db_fa, "-id", "0.9",
+                "-strand", "plus", "-quiet", *extra])
+    db = SeqDB.from_fastx(db_fa)
+    db.mask()
+    index = UDBIndex.from_seqdb(db)
+    seqs = [s for _l, s, _q in read_fastx(q_fa, stream=True)]
+    jbuf = np.ascontiguousarray(np.concatenate(seqs))
+    j_off = np.zeros(len(seqs) + 1, np.int64)
+    np.cumsum([len(s) for s in seqs], out=j_off[1:])
+    got = CSRDeviceRanker(index, card, chunk_b=32).rank_window(jbuf, j_off)
+    want = CSRDeviceRanker(index, torch.device("cpu"),
+                           chunk_b=32).rank_window(jbuf, j_off)
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and np.array_equal(x, y)
+    assert got[2].min() > 0

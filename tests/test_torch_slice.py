@@ -102,7 +102,7 @@ def test_cli_needs_a_card_unless_cpu_is_passed(contigs, monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [["-mesh", "2"], ["-mesh", "auto"],
-                                   ["-device_rank"], ["-xprof", "trace"]])
+                                   ["-xprof", "trace"]])
 def test_unported_paths_say_so(contigs, capsys, extra):
     """The device paths still to be ported exit 2 before any output."""
     d, qf, tf, _ = contigs

@@ -126,6 +126,8 @@ def load_library():
                 vp, i32,                       # gp, n_pairs
                 vp, vp, vp, vp, i32,           # scores, states, tblast, ops,
                 vp]                            # stride, stream
+            lib.banded_nw_chase_geometry.restype = i32
+            lib.banded_nw_chase_geometry.argtypes = [i32, i32, i32, i32, vp]
             lib.sintax_pick_hist_launch.restype = i32
             lib.sintax_pick_hist_launch.argtypes = [
                 vp, vp, vp, i32,               # nuw, m, stream, stream_len

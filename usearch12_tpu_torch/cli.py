@@ -1,5 +1,6 @@
 """usearch-compatible command line driver of the port, with
-usearch_global's hole alignment and sintax's bootstraps on the card.
+usearch_global's hole alignment and ranking and sintax's bootstraps on
+the card.
 
 Invocation mirrors the reference (src/usearch_main.cpp, src/getcmd.cpp):
 the first -flag that names a command selects it; all other -flag [value]
@@ -11,10 +12,9 @@ pairs populate the option registry.
         -strand both -tabbedout tax.txt
 
 Every command writes the bytes that the JAX package's CLI writes.
-Three device paths are not ported yet and exit 2: -mesh (usearch_global,
-cluster_mt), -device_rank (usearch_global) and -xprof.  torch is
-imported only by the paths that run on the card, so a host command
-starts as fast as in the JAX package.
+Two device paths are not ported yet and exit 2: -mesh (usearch_global,
+cluster_mt) and -xprof.  torch is imported only by the paths that run on
+the card, so a host command starts as fast as in the JAX package.
 """
 
 from __future__ import annotations
@@ -99,8 +99,6 @@ def _unported(cmd: str) -> List[str]:
     out = []
     if cmd in ("usearch_global", "cluster_mt") and o.filled("mesh"):
         out.append("-mesh")
-    if cmd == "usearch_global" and o.flag("device_rank"):
-        out.append("-device_rank")
     if o.filled("xprof"):
         out.append("-xprof")
     return out

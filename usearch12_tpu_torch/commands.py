@@ -2,10 +2,11 @@
 
 Each mirrors a reference pipeline (src/searchcmd.cpp, src/clusterfast.cpp,
 etc.), composed from the package's engine layers.  usearch_global aligns
-its holes on the card (engine/batch.py) and sintax may run its boots
-there (amplicon/sintax.py); every other command runs on the host.  The
-device paths still to be ported (-mesh, -device_rank, -xprof) are refused
-by the CLI before a command starts.  torch is imported only when a
+its holes on the card (engine/batch.py) and may rank there
+(ops/csr_rank.py), and sintax may run its boots there
+(amplicon/sintax.py); every other command runs on the host.  The device
+paths still to be ported (-mesh, -xprof) are refused by the CLI before a
+command starts.  torch is imported only when a
 command runs on the card.
 """
 
@@ -67,12 +68,35 @@ _OUTPUTS = ("blast6out", "alnout", "uc", "matched", "notmatched",
             "fastapairs", "userout", "qsegout", "tsegout", "trimout")
 
 
+# the DB size from which usearch_global would rank on the engine's device
+# without -device_rank (the JAX package's gate is 200,000 targets); None:
+# never.  On an H100 the card ranked 220,000 targets more slowly than the
+# host as a fresh process (chip_smoke.py's phase 9, PERF.md), so only an
+# explicit -device_rank takes it
+AUTO_MIN_RANK_TARGETS = None
+
+
+def _device_rank(eng, dev) -> bool:
+    """Whether usearch_global's ranking runs on the card
+    (ops/csr_rank.py): asked with -device_rank, or, unless
+    -no_device_rank, when the engine has a device and the DB has at least
+    AUTO_MIN_RANK_TARGETS targets (where that is set); never for a hashed
+    index."""
+    o = options()
+    forced, refused = o.flag("device_rank"), o.flag("no_device_rank")
+    if refused or eng.index.params.hashed:
+        return False
+    return forced or (dev is not None and AUTO_MIN_RANK_TARGETS is not None
+                      and eng.index.seq_count >= AUTO_MIN_RANK_TARGETS)
+
+
 def cmd_usearch_global(query_path: Optional[str],
                        device: DeviceLike = None) -> None:
     """usearch_global: UDB global search with USORT ranking
     (src/searchcmd.cpp:6-50, src/search.cpp:89-141): the batch engine,
-    with the hole DP on `device` unless -no_engine_device, where it takes
-    the run, else the serial driver."""
+    with the hole DP on `device` unless -no_engine_device and the ranking
+    there where _device_rank says, where it takes the run, else the serial
+    driver."""
     o = options()
     if query_path is None:
         query_path = o.str("query")
@@ -137,20 +161,31 @@ def cmd_usearch_global(query_path: Optional[str],
                 and not (db_index is not None and db_index.params.hashed) \
                 and not o.flag("use_serial_driver"):
             from .engine import BatchEngine
-            o.flag("no_device_rank")     # the host ranker is the only one
             dev = None
             if not o.flag("no_engine_device"):
                 from .device import resolve_device
                 dev = resolve_device(device)
             eng = BatchEngine("usearch_global", db, index=db_index,
                               device=dev)
+            rank_override = None
+            if _device_rank(eng, dev):
+                from .device import resolve_device
+                from .ops.csr_rank import (CSRDeviceRanker,
+                                           make_engine_override)
+                ranker = CSRDeviceRanker(
+                    eng.index, dev if dev is not None
+                    else resolve_device(device),
+                    topk=max(64, eng.max_accepts + eng.max_rejects))
+                rank_override = make_engine_override(ranker, eng)
             if f.keys() == {"blast6out"} and dbhit is None:
                 from .engine.emit import Blast6Emitter
                 eng.run_file(query_path, on_query_done,
                              fast_emit=Blast6Emitter(f["blast6out"], db,
-                                                     no_hits))
+                                                     no_hits),
+                             rank_override=rank_override)
             else:
-                eng.run_file(query_path, on_query_done)
+                eng.run_file(query_path, on_query_done,
+                             rank_override=rank_override)
         else:
             search_file("usearch_global", query_path, db, on_query_done,
                         index=db_index)

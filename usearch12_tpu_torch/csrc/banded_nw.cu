@@ -79,8 +79,31 @@
 // the warp copies them to tb as one contiguous run a pair (and writes
 // rows la .. amax - 1 as zeros, so tb needs no clearing).
 //
-// banded_nw_chase is one thread a pair: the final row is a sequential
-// recurrence and the chase a chain of dependent byte loads.
+// banded_nw_chase.  What bounds it on the card: the chase is a chain of
+// dependent reads, one or two a row, and each lands in a row of its own
+// W + 1 bytes of the pair-major tb, so the path sweeps the pair's whole
+// traceback at the 32-byte sectors device memory delivers (chip_smoke.py
+// prints that floor beside the kernel's time).  One thread a pair made
+// each step a device-memory latency, with each thread reading a region
+// of its own.  Design: a warp for G pairs (G = 32 down to 1, so that a
+// launch of few pairs still has BNC_MIN_WARPS warps), a lane chasing
+// each.  The lane streams its pair's rows, top down, into a ring of
+// BNC_SLOTS windows of R rows in shared memory, one bulk copy (the TMA)
+// a window completing on an mbarrier, the next BNC_SLOTS - 1 windows in
+// flight while it chases in the current one; a lane that reaches the row
+// below its window waits for the others, then every pair moves to its
+// next window.  (Copies of 16 bytes a thread, by the chasing lane or by
+// the whole warp pair after pair, moved the same bytes more slowly on an
+// H100.)  A step is then a shared-memory load: inside the matrix, off the
+// final row and the Drow[LB] column, the band cell and the row move by
+// fixed steps and the next state comes from a 2-bit table.  The final
+// DPI row: the warp stages its pairs' mlast rows in shared memory,
+// coalesced, and each chasing lane runs its pair's recurrence in the
+// oracle's order; the chase reads that row only leftwards from lb - 1 in
+// state I, stopping at the first set bit, so the lane keeps only the last
+// column whose bit is set.  tblast and the path codes are staged in
+// shared memory and written out as one contiguous run a warp (every byte
+// of ops: OP_PAD past the path).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -fmad=false (see
 // usearch12_tpu_torch/_build.py).  -fmad=false keeps every add a single
@@ -96,6 +119,14 @@
 // group of 4-cell parts (16 lanes) fills the warp with 8 cells a lane, not
 // 12.  Timed on an H100, 6 was the faster at band 41 and 4 at band 125.
 #define BNW_CV6_MAX 120
+// banded_nw_chase: windows in each pair's ring, the most bytes of a
+// window's slot and of a warp's rings, the fewest warps a launch is cut
+// into while pairs a warp can halve, and the most shared memory a block
+#define BNC_SLOTS 3
+#define BNC_SLOT_MAX 4096
+#define BNC_RING_WARP 49152
+#define BNC_MIN_WARPS 1024
+#define BNC_SMEM_MAX (160 * 1024)
 enum { OP_M = 0, OP_D = 1, OP_I = 2, OP_PAD = 3 };
 
 // Interface of this file's entry points, for tools that time two
@@ -335,93 +366,248 @@ __global__ void __launch_bounds__(32 * BNW_WARPS) banded_nw_fwd_kernel(
     bnw_flush(q, lane, ring_w, R, G, p0, n_pairs, amax, W, la, L, tb);
 }
 
-__global__ void banded_nw_chase_kernel(
+__device__ __forceinline__ int bnc_lds(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u8 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return (int)v;
+}
+
+__device__ __forceinline__ void bnc_bulk(uint32_t dst, const void* src,
+                                         int bytes, uint32_t mbar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst), "l"(src), "r"(bytes), "r"(mbar)
+      : "memory");
+}
+
+__device__ __forceinline__ bool bnc_try_wait(uint32_t mbar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok) : "r"(mbar), "r"(parity) : "memory");
+  return ok != 0;
+}
+
+// One warp (a block) for G pairs p0 .. p0 + G - 1: lane g chases pair
+// p0 + g; R rows a window, `slot` bytes a window's slot
+// (banded_nw_chase_geometry).  Shared memory: the slots' mbarriers (with
+// a traceback), each pair's ring of BNC_SLOTS slots, then the scratch
+// area: mlast rows and the final row's bits while the final row runs, the
+// packed path codes after.
+__global__ void __launch_bounds__(32) banded_nw_chase_kernel(
     const uint8_t* __restrict__ tb, int amax,
     const float* __restrict__ mlast, int W, const float* __restrict__ dlb,
     const int* __restrict__ la_v, const int* __restrict__ lb_v,
     const int* __restrict__ dlo_v, const int* __restrict__ bw_v,
     const float* __restrict__ gp, int n_pairs,
     float* __restrict__ scores, uint8_t* __restrict__ states,
-    uint8_t* __restrict__ tblast, uint8_t* __restrict__ ops, int stride) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n_pairs) return;
+    uint8_t* __restrict__ tblast, uint8_t* __restrict__ ops, int stride,
+    int G, int R, int slot) {
+  extern __shared__ __align__(16) uint8_t bnc_smem[];
+  const int lane = threadIdx.x, g = lane;
+  const long long p0 = (long long)blockIdx.x * G;
+  const int n_live = (int)min((long long)G, n_pairs - p0);
+  const bool chaser = g < n_live;
+  const long long p = p0 + (chaser ? g : 0);
   const int la = la_v[p], lb = lb_v[p], dlo = dlo_v[p], bw = bw_v[p];
   const float r_open_a = gp[GP_R_OPEN_A], r_ext_a = gp[GP_R_EXT_A];
-  const float* ML = mlast + (size_t)p * W;
-  uint8_t* TL = tblast + (size_t)p * W;
+  const int RB = W + 1;                       // bytes of a traceback row
+  const int head = tb != nullptr ? (G * BNC_SLOTS * 8 + 15) & ~15 : 0;
+  const int mine = chaser ? g : 0;            // the lane's ring and mbarriers
+  const uint32_t smem_s = (uint32_t)__cvta_generic_to_shared(bnc_smem);
+  const uint32_t ring_s = smem_s + (uint32_t)(head + mine * BNC_SLOTS * slot);
+  uint8_t* scratch = bnc_smem + head + (size_t)G * BNC_SLOTS * slot;
 
-  // final DPI row (i = la) over the band of row la-1: cell k is column
-  // j = dlo - 1 + k, from j = dlo - 1 to lb - 1; Mrow[startj-1] is NEG
-  float i1 = UT_NEG;
-  const int n_last = lb - dlo + 1;
-  for (int k = 0; k < W; ++k) {
-    uint8_t bit = 0;
-    if (k < n_last) {
-      const float mi = (k == 0 ? UT_NEG : ML[k - 1]) + r_open_a;
-      i1 = i1 + r_ext_a;
-      if (mi > i1) {
-        i1 = mi;
-        bit = UT_TB_MI;
+  // window e of a pair: its rows hi = la - 1 - e R down to lo, one bulk
+  // copy (the TMA) into slot e % BNC_SLOTS from the 16-byte boundary at or
+  // below the first row, issued by the chasing lane, completing on the
+  // slot's mbarrier (phase e / BNC_SLOTS); the few bytes of a window that
+  // reach past a 16-byte boundary beyond tb's end come by plain loads
+  const uint32_t mbar0 = smem_s + (uint32_t)(mine * BNC_SLOTS * 8);
+  const bool copies = chaser && tb != nullptr;
+  if (copies)
+    for (int q = 0; q < BNC_SLOTS; ++q)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                   ::"r"(mbar0 + 8 * q));
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  __syncwarp();
+  const uint8_t* tb_end = tb + (size_t)n_pairs * amax * RB;
+  auto issue = [&](int e) {
+    const int hi = la - 1 - e * R;
+    if (!copies || hi < 0) return;
+    const int lo = hi - R + 1 > 0 ? hi - R + 1 : 0;
+    const uint8_t* gs = tb + ((size_t)p * amax + lo) * RB;
+    const uint8_t* ga = (const uint8_t*)((uintptr_t)gs & ~(uintptr_t)15);
+    const long long want = (gs - ga) + (long long)(hi - lo + 1) * RB;
+    const long long room = tb_end - ga;
+    long long bytes = (want + 15) & ~15LL;
+    if (bytes > room) bytes = room & ~15LL;
+    const uint32_t dst = ring_s + (uint32_t)((e % BNC_SLOTS) * slot);
+    const uint32_t mbar = mbar0 + 8 * (e % BNC_SLOTS);
+    for (long long x = bytes; x < want; ++x)
+      asm volatile("st.shared.u8 [%0], %1;\n" ::"r"(dst + (uint32_t)x),
+                   "r"((uint32_t)ga[x]));
+    // the slot was last read through the generic proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 ::"r"(mbar), "r"((int)bytes) : "memory");
+    if (bytes > 0) bnc_bulk(dst, ga, (int)bytes, mbar);
+  };
+  auto landed = [&](int e) {         // wait for window e
+    if (copies && la - 1 - e * R >= 0)
+      while (!bnc_try_wait(mbar0 + 8 * (e % BNC_SLOTS),
+                           (uint32_t)((e / BNC_SLOTS) & 1))) {
       }
-    }
-    TL[k] = bit;
-  }
-  float score = ML[lb - dlo];                  // M(la-1, lb-1)
+  };
+  for (int e = 0; e < BNC_SLOTS - 1; ++e) issue(e);
+
+  // final DPI row (i = la) over the band of row la-1, cell k at column
+  // j = dlo - 1 + k up to lb - 1 (Mrow[startj-1] is NEG), overlapping the
+  // first copies: the warp stages its pairs' mlast rows in shared memory,
+  // coalesced, and each chasing lane runs its pair's recurrence in order
+  float* sML = (float*)scratch;
+  uint8_t* sTL = scratch + (size_t)G * W * sizeof(float);
+  const long long n_ml = (long long)n_live * W;
+  for (long long x = lane; x < n_ml; x += 32) sML[x] = mlast[p0 * W + x];
+  __syncwarp();
   int st = OP_M;
-  if (dlb[p] > score) {
-    score = dlb[p];
-    st = OP_D;
+  int jstar = -1;           // the final row's last column whose bit is set
+  if (chaser) {
+    const float* ML = sML + (size_t)g * W;
+    uint8_t* TL = sTL + (size_t)g * W;
+    float i1 = UT_NEG;
+    const int n_last = lb - dlo + 1;
+    for (int k = 0; k < W; ++k) {
+      uint8_t bit = 0;
+      if (k < n_last) {
+        const float mi = (k == 0 ? UT_NEG : ML[k - 1]) + r_open_a;
+        i1 = i1 + r_ext_a;
+        if (mi > i1) {
+          i1 = mi;
+          bit = UT_TB_MI;
+          jstar = dlo - 1 + k;
+        }
+      }
+      TL[k] = bit;
+    }
+    float score = ML[lb - dlo];                // M(la-1, lb-1)
+    const float fin_d = dlb[p];
+    if (fin_d > score) {
+      score = fin_d;
+      st = OP_D;
+    }
+    if (i1 > score) {
+      score = i1;
+      st = OP_I;
+    }
+    scores[p] = score;
+    states[p] = (uint8_t)st;
   }
-  if (i1 > score) {
-    score = i1;
-    st = OP_I;
-  }
-  scores[p] = score;
-  states[p] = (uint8_t)st;
+  __syncwarp();
+  for (long long x = lane; x < n_ml; x += 32) tblast[p0 * W + x] = sTL[x];
   if (tb == nullptr) return;
 
-  uint8_t* O = ops + (size_t)p * stride;
+  // the path codes of pair g go to scratch row g, every byte OP_PAD until
+  // written, and out to ops as one contiguous run at the end
+  __syncwarp();
+  const int n_ops = n_live * stride;
+  for (int x = lane; x < (n_ops + 3) >> 2; x += 32)
+    ((uint32_t*)scratch)[x] = 0xffffffffu;
+  __syncwarp();
+  uint8_t* O = scratch + (size_t)g * stride;
+  const int n_max = 4 * stride;
   int i = la, j = lb, n = 0;
   unsigned acc = 0;
-  while ((i > 0 || j > 0) && i >= 0 && j >= 0 && n < 4 * stride) {
+  auto alive = [&]() {
+    return chaser && (i > 0 || j > 0) && i >= 0 && j >= 0 && n < n_max;
+  };
+  auto emit = [&]() {
     acc |= (unsigned)st << (2 * (n & 3));
     if ((n & 3) == 3) {
       O[n >> 2] = (uint8_t)acc;
       acc = 0;
     }
     ++n;
-    // the cell whose bits decide the next state is where the move lands
-    const int ri = st == OP_I ? i : i - 1;
-    const int rj = st == OP_D ? j : j - 1;
-    int bits = 0;
-    if (ri >= 0 && rj >= 0) {
-      if (ri == la) {
-        const int k = rj - dlo + 1;
-        bits = k >= 0 && k < W ? TL[k] : 0;
-      } else if (ri < amax) {
-        const uint8_t* T = tb + ((size_t)p * amax + ri) * (W + 1);
+  };
+  // the next state from the landing cell's bits, as 2-bit tables of the
+  // 16 bit patterns: M -> D on TB_DM, else I on TB_IM, else M; D -> M on
+  // TB_MD; I -> M on TB_MI
+  const uint32_t next_m = 0x64646464u, next_d = 0x00550055u,
+                 next_i = 0x0000aaaau;
+  int e_end = 0;
+  for (int e = 0;; ++e) {
+    e_end = e;
+    __syncwarp();                    // window e - 1 is read no more
+    issue(e + BNC_SLOTS - 1);        // into its slot
+    landed(e);
+    __syncwarp();
+    const int hi = la - 1 - e * R;
+    const int lo = hi - R + 1 > 0 ? hi - R + 1 : 0;
+    const uintptr_t gs = (uintptr_t)(tb + ((size_t)p * amax + lo) * RB);
+    // row ri of window e at shared address sb + ri * RB
+    const uint32_t sb = ring_s + (uint32_t)((e % BNC_SLOTS) * slot +
+                                            (int)(gs & 15) - lo * RB);
+    while (alive()) {
+      if (i > lo && j > 0 && i < la && j < lb) {
+        // interior: every landing cell has lo <= ri < la and 0 <= rj < lb,
+        // so its bits are its byte inside the band, TB_IM at k == -1,
+        // else 0; k and the row move by fixed steps a state
+        int k = j - i + la - dlo;    // band cell of (i - 1, j - 1)
+        uint32_t row = sb + (uint32_t)(i * RB);
+        do {
+          emit();
+          const bool sd = st == OP_D, si = st == OP_I;
+          const uint32_t tbl = st == OP_M ? next_m : (sd ? next_d : next_i);
+          k += sd ? 1 : (si ? -1 : 0);
+          row -= si ? 0 : RB;
+          i -= !si;
+          j -= !sd;
+          int bits;
+          if ((unsigned)k < (unsigned)bw)
+            bits = bnc_lds(row + k);
+          else
+            bits = k == -1 ? UT_TB_IM : 0;
+          st = (tbl >> (2 * bits)) & 3;
+        } while (i > lo && j > 0 && i < la && j < lb && n < n_max);
+        continue;
+      }
+      // the cell whose bits decide the next state is where the move lands
+      const int ri = st == OP_I ? i : i - 1;
+      const int rj = st == OP_D ? j : j - 1;
+      const bool in_tb = ri >= 0 && rj >= 0 && ri < la;
+      if (in_tb && ri < lo) break;   // in window e + 1
+      emit();
+      int bits = 0;
+      if (in_tb) {
+        const uint32_t row = sb + (uint32_t)(ri * RB);
         const int k = rj - (dlo + ri - la);
         if (rj == lb)
-          bits = T[W];
+          bits = bnc_lds(row + W);
         else if (k == -1)
           bits = UT_TB_IM;     // the reference's marker TB[i][startj-1]
         else if (k >= 0 && k < bw)
-          bits = T[k];
+          bits = bnc_lds(row + k);
+      } else if (ri == la && rj >= 0) {
+        // the final DPI row, read leftwards from lb - 1 in state I only
+        bits = rj == jstar ? UT_TB_MI : 0;
       }
+      st = ((st == OP_M ? next_m : (st == OP_D ? next_d : next_i)) >>
+            (2 * bits)) & 3;
+      i = ri;
+      j = rj;
     }
-    if (st == OP_M)
-      st = bits & UT_TB_DM ? OP_D : (bits & UT_TB_IM ? OP_I : OP_M);
-    else if (st == OP_D)
-      st = bits & UT_TB_MD ? OP_M : OP_D;
-    else
-      st = bits & UT_TB_MI ? OP_M : OP_I;
-    i = ri;
-    j = rj;
+    if (!__any_sync(BNW_FULL, alive())) break;
   }
-  if (n & 3) {
+  if (chaser && (n & 3)) {
     for (int r = n & 3; r < 4; ++r) acc |= (unsigned)OP_PAD << (2 * r);
     O[n >> 2] = (uint8_t)acc;
   }
+  __syncwarp();
+  for (int x = lane; x < n_ops; x += 32) ops[p0 * stride + x] = scratch[x];
+  // copies still in flight (windows past a path's end) land before exit
+  for (int q = 1; q < BNC_SLOTS; ++q) landed(e_end + q);
 }
 
 template <int CV>
@@ -467,18 +653,63 @@ extern "C" int banded_nw_fwd_launch(
                            match, mismatch, n_pairs, W, tb, mlast, dlb, s);
 }
 
+// banded_nw_chase's launch geometry: the most pairs a warp, G (a power
+// of two), that leaves at least BNC_MIN_WARPS warps and fits the shared
+// memory; R rows a window and the slot of a window.  Returns the shared
+// memory of a block (one warp), or 0 if one pair does not fit.
+extern "C" int banded_nw_chase_geometry(int n_pairs, int W, int stride,
+                                        int with_tb, int* out) {
+  const int RB = W + 1;
+  for (int G = 32; G >= 1; G >>= 1) {
+    if (G > 1 && (n_pairs + G - 1) / G < BNC_MIN_WARPS) continue;
+    int slot = 0, R = 0;
+    if (with_tb) {
+      int room = BNC_RING_WARP / (BNC_SLOTS * G);
+      room = (room < BNC_SLOT_MAX ? room : BNC_SLOT_MAX) & ~15;
+      R = (room - 15) / RB;            // up to 15 bytes before the first row
+      if (R < 2) R = 2;
+      slot = (R * RB + 15 + 15) & ~15;
+    }
+    long long scratch = (long long)G * W * (sizeof(float) + 1);
+    if (with_tb && (long long)G * stride > scratch)
+      scratch = (long long)G * stride;
+    scratch = (scratch + 15) & ~15LL;
+    const long long head = with_tb ? (G * BNC_SLOTS * 8 + 15) & ~15 : 0;
+    const long long smem = head + (long long)G * BNC_SLOTS * slot + scratch;
+    if (smem <= BNC_SMEM_MAX) {
+      out[0] = G;
+      out[1] = R;
+      out[2] = slot;
+      return (int)smem;
+    }
+  }
+  return 0;
+}
+
 extern "C" int banded_nw_chase_launch(
     const void* tb, int amax, const void* mlast, int W, const void* dlb,
     const void* la, const void* lb, const void* dlo, const void* bw,
     const void* gp, int n_pairs, void* scores, void* states, void* tblast,
     void* ops, int stride, void* stream) {
   if (n_pairs <= 0) return 0;
-  const int threads = 128;
-  const int blocks = (n_pairs + threads - 1) / threads;
-  banded_nw_chase_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  int geo[3];
+  const int smem =
+      banded_nw_chase_geometry(n_pairs, W, stride, tb != nullptr, geo);
+  if (smem <= 0 || ((uintptr_t)tb & 15)) return (int)cudaErrorInvalidValue;
+  // as much of the SM's memory as shared memory as the blocks can use
+  cudaError_t e = cudaFuncSetAttribute(
+      banded_nw_chase_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      (int)cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess && smem > 48 * 1024)
+    e = cudaFuncSetAttribute(banded_nw_chase_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long blocks = ((long long)n_pairs + geo[0] - 1) / geo[0];
+  banded_nw_chase_kernel<<<(unsigned)blocks, 32, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)tb, amax, (const float*)mlast, W, (const float*)dlb,
       (const int*)la, (const int*)lb, (const int*)dlo, (const int*)bw,
       (const float*)gp, n_pairs, (float*)scores, (uint8_t*)states,
-      (uint8_t*)tblast, (uint8_t*)ops, stride);
+      (uint8_t*)tblast, (uint8_t*)ops, stride, geo[0], geo[1], geo[2]);
   return (int)cudaGetLastError();
 }

@@ -395,8 +395,11 @@ class BatchEngine:
             if o.filled("dev_batch_cells") else None
         self.perf = None
         self._windows_left = 1
+        # rank_device_jobs: jobs ranked by a rank_override (the card's CSR
+        # ranker); rank_host_rerank_jobs: those of them it left to the host
         self.dev_stats = {"dispatches": 0, "device_cells": 0,
-                          "host_cells": 0}
+                          "host_cells": 0, "rank_device_jobs": 0,
+                          "rank_host_rerank_jobs": 0}
         # adaptive gating on the card only; the CPU (the kernels' plain
         # versions, for tests) uses -dev_batch_cells
         if device is not None and device.type == "cuda":
@@ -672,6 +675,7 @@ class BatchEngine:
 
     def search_window(self, jbuf: np.ndarray, j_off: np.ndarray,
                       collect_hits: Callable,
+                      rank_override: Optional[Callable] = None,
                       collect_round: Optional[Callable] = None,
                       sc: Optional[_Scratch] = None) -> None:
         """Run all jobs to termination.  collect_hits(j, tix, path_bytes,
@@ -679,10 +683,16 @@ class BatchEngine:
         collect_round, when given, replaces the per-hit loop: it is
         called once per candidate round with the round's packed arrays
         (hit_job, hit_tix, hit_paths, hit_path_off, hit_stats) — hits
-        stable-sorted by job across rounds reproduce acceptance order."""
+        stable-sorted by job across rounds reproduce acceptance order.
+        rank_override(jbuf, j_off) -> (cand, cnts, out_n) substitutes the
+        ranking stage (ops/csr_rank.py's ranker on the card)."""
         sc = sc or self._sc
         n_jobs = len(j_off) - 1
-        cand, cnts, out_n = self._rank_jobs(jbuf, j_off, sc)
+        if rank_override is not None:
+            cand, cnts, out_n = rank_override(jbuf, j_off)
+            self.dev_stats["rank_device_jobs"] += n_jobs
+        else:
+            cand, cnts, out_n = self._rank_jobs(jbuf, j_off, sc)
         job_state = np.zeros((n_jobs, 3), np.int32)
         ptr = np.zeros(n_jobs, np.int32)
         depth = 1
@@ -724,13 +734,15 @@ class BatchEngine:
 
     # -- file driver -----------------------------------------------------
     def run_file(self, query_path: str, on_query_done: Callable,
-                 window: int = 8192, fast_emit=None) -> None:
+                 window: int = 8192, fast_emit=None,
+                 rank_override: Optional[Callable] = None) -> None:
         """Stream the query file through the engine.  on_query_done(label,
         seq, hits) per record in input order (hits = AlignResult list in
         acceptance order, fwd strand first — identical to the serial
         driver).  fast_emit, when given, is called as
         fast_emit(win, rec_lo, rec_hi, per_rec_hits) instead of building
-        AlignResult objects."""
+        AlignResult objects.  rank_override: see search_window; the
+        windows then run one after another."""
         o = options()
         strand_both = False
         if self.nucleo:
@@ -800,6 +812,7 @@ class BatchEngine:
                     rounds.append((hj.copy(), ht.copy(), hs.copy()))
 
                 self.search_window(jbuf, j_off, None,
+                                   rank_override=rank_override,
                                    collect_round=collect_round, sc=sc)
                 return (jbuf, j_off, jobs_per_rec, rounds, None)
             per_job_hits: List[List] = [[] for _ in range(
@@ -808,7 +821,8 @@ class BatchEngine:
             def collect(j, tix, path_b, stats):
                 per_job_hits[j].append((tix, path_b, stats))
 
-            self.search_window(jbuf, j_off, collect, sc=sc)
+            self.search_window(jbuf, j_off, collect,
+                               rank_override=rank_override, sc=sc)
             return (jbuf, j_off, jobs_per_rec, None, per_job_hits)
 
         def emit_window(lo, hi, res):
@@ -852,7 +866,7 @@ class BatchEngine:
 
         bounds = [(lo, min(lo + window, n)) for lo in range(0, n, window)]
         n_threads = _thread_count()
-        if n_threads > 1 and len(bounds) > 1:
+        if n_threads > 1 and len(bounds) > 1 and rank_override is None:
             # per-thread scratch; ex.map preserves window order, so the
             # emitted bytes are identical to the serial path
             import concurrent.futures as cf

@@ -251,10 +251,14 @@ def banded_nw_chase(tb, mlast, dlb, la, lb, dlo, bw, gp):
     if dev.type == "cpu":
         return banded_nw_chase_plain(tb, mlast, dlb, la, lb, dlo, bw, gp,
                                      stride)
+    if tb is not None and tb.data_ptr() % 16:
+        raise ValueError("banded_nw_chase: tb must start on a 16-byte "
+                         "boundary")
+    # the kernel writes every byte of ops, OP_PAD past each path
     scores = torch.empty(P, dtype=torch.float32, device=dev)
     states = torch.empty(P, dtype=torch.uint8, device=dev)
     tblast = torch.empty((P, W), dtype=torch.uint8, device=dev)
-    ops = torch.full((P, stride), 0xFF, dtype=torch.uint8, device=dev) \
+    ops = torch.empty((P, stride), dtype=torch.uint8, device=dev) \
         if tb is not None else None
     lib = _build.load_library()
     with torch.cuda.device(dev):

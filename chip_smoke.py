@@ -71,7 +71,24 @@ Phases, each printing a line, any failure exits non-zero:
      one chunk (hit stream, counts, ranking and top-K), each beside its
      bound, torch.bincount alone, and the window's wall and device time
      (torch.profiler); both rankers as fresh processes in turns host,
-     card, card, host, for the automatic gate.
+     card, card, host, for the automatic gate;
+ 10. mesh: (a) cluster_mt -mesh 1 (parallel/cluster_batch.py, the U
+     counts on the card) through the port's command line in this process
+     on bench.py's amplicon reads cut to 30,000 (400 templates of 250 nt,
+     seed 11), -id 0.97, against the host cluster_mt: -uc and -centroids
+     bytes equal, or the run fails; the centroids, the incidence's
+     capacity and bytes, windows, flushes and the count's device time; the
+     counter at the final centroid set, its product alone in the
+     target-major (TN) layout and on a row-major (NN) copy; (b)
+     usearch_global -mesh 1 (parallel/mesh_search.py) on phase 9's
+     workload at -big 300000 (the sharded product) and at the default
+     -big (UDBSearchBig on the CSR ranker): blast6 equal to phase 9's
+     host ranker's; MeshRanker on a 1x4 mesh whose shards all live on the
+     card against the 1x1 mesh, equal on every job; the stages of one
+     chunk of rows beside their bounds and the window's profile; (c) two
+     processes on the card through multihost_search (gloo), the spliced
+     blast6 equal to (b)'s at -big 300000; (d) -xprof on 200 queries,
+     whose trace must hold CUDA kernel events.
 Every kernel's time comes with its bound: the larger of the bytes it
 must move over 3.35 TB/s and its operations over the card's peak for
 their type (float32 67 TFLOP/s; the tensor cores' int8 1,979 TOP/s and
@@ -1552,6 +1569,358 @@ def phase_rank(d, dev, phase_done):
     return out
 
 
+# reads of the cluster_mt phase: bench.py's amplicon reads (400 templates of
+# 250 nt, seed 11, 250 reads each: 100,400 records) cut to 74 reads a
+# template, 30,000 records
+MESH_READS = 30000
+
+
+def gen_reads(path, n_records, seed=11):
+    """bench.py's _gen_workloads reads (tests/genseqs.py:make_amplicons, 400
+    templates of 250 nt) with n_records // 400 - 1 reads a template."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from genseqs import make_amplicons, write_fasta
+    write_fasta(path, make_amplicons(n_templates=400,
+                                     reads_per_template=n_records // 400 - 1,
+                                     length=250, seed=seed))
+
+
+def read_stats(path):
+    with open(path) as f:
+        return json.loads(f.read().splitlines()[-1])
+
+
+def u_count_stages(reads, cent_fa, dev):
+    """DeviceUCounter at the final centroid set of the cluster_mt run: one
+    window of 128 reads through count() and its product alone (the
+    target-major incidence's transposed view, cuBLASLt's TN layout), each
+    beside its bound, and the same product on a (V, T) row-major copy (NN)
+    for the layout torch._int_mm wants."""
+    import numpy as np
+    import torch
+    from usearch12_tpu_torch import cli
+    from usearch12_tpu_torch.index.udb import UDBIndex, UDBParams
+    from usearch12_tpu_torch.io.fastx import read_fastx
+    from usearch12_tpu_torch.parallel import incidence as inc
+    from usearch12_tpu_torch.parallel.cluster_batch import DeviceUCounter
+    from usearch12_tpu_torch.parallel.mesh import single_mesh
+    cli.parse_argv(["-cluster_mt", reads, "-id", "0.97", "-quiet"])
+    index = UDBIndex(UDBParams.global_usearch(True))
+    for k, (_l, s, _q) in enumerate(read_fastx(cent_fa, stream=True)):
+        index.add_seq(k, s)
+        index.seq_count = k + 1
+    t = index.seq_count
+    window = [s for _l, s, _q in read_fastx(reads, stream=True)][:128]
+    counter = DeviceUCounter(single_mesh(dev))
+    counter.refresh(index)
+    count_ms, u = cuda_ms(lambda: counter.count(index, window), 5)
+    v_pad = inc.pad8(index.params.slot_count)
+    q = inc.onehot([index.params.unique_words(s) for s in window],
+                   inc.query_rows(len(window)), v_pad, dev)
+    w = counter._shard_of(0, 0)[:inc.pad8(t)]
+    tn_ms, prod = cuda_ms(lambda: inc.int8_mm(q, w), 10)
+    if not np.array_equal(prod[:len(window), :t].cpu().numpy(), u):
+        fail("the U counter's product differs from count()")
+    w_nn = w.t().contiguous()
+    try:
+        nn_ms, prod_nn = cuda_ms(lambda: torch._int_mm(q, w_nn), 10)
+        if not torch.equal(prod_nn, prod):
+            fail("the NN layout's product differs")
+    except RuntimeError as e:
+        nn_ms = f"refused ({str(e).splitlines()[0][:80]})"
+    del w_nn
+    n = w.shape[0]
+    b_prod = bound(nbytes_of(q, w) + 4 * q.shape[0] * n,
+                   2 * q.shape[0] * v_pad * n, PEAK_INT8)
+    out = {"t": t, "cap": counter.cap, "count_ms": count_ms,
+           "product_ms": tn_ms, "nn_ms": nn_ms, "bound": b_prod}
+    print(f"mesh (a) U counter at {t} centroids (capacity {counter.cap}, "
+          f"{counter.nbytes} incidence bytes), a window of {len(window)} "
+          f"reads: count() {count_ms:.4f} ms (one-hot, product, copy back), "
+          f"torch._int_mm alone {tn_ms:.4f} ms on the target-major rows "
+          f"(TN), {nn_ms if isinstance(nn_ms, str) else f'{nn_ms:.4f} ms'} "
+          f"on a (V, T) row-major copy (NN); bound {b_prod[0]:.4f} ms by "
+          f"{b_prod[1]}", flush=True)
+    del counter, q, w, prod
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_stages(udb, qf, dev):
+    """MeshRanker at -big 300000 on the ranking workload: the 1x1 mesh of
+    the card against a 1x4 mesh whose four shards all live on the card
+    (equal lists on every job, or the run fails), the stages of one chunk
+    of rows (product, prefix maxima and the SetTopBump mask, top K and the
+    merge with NextValue, copies back) each beside its bound, and the
+    window's device time with its eight largest entries (torch.profiler).
+    Returns the numbers."""
+    import numpy as np
+    import torch
+    from usearch12_tpu_torch import cli
+    from usearch12_tpu_torch.commands import load_db
+    from usearch12_tpu_torch.io.fastx import read_fastx
+    from usearch12_tpu_torch.parallel import incidence as inc
+    from usearch12_tpu_torch.parallel.mesh import single_mesh
+    from usearch12_tpu_torch.parallel.mesh_search import MeshRanker
+    cli.parse_argv(["-usearch_global", qf, "-db", udb, "-id", "0.9",
+                    "-strand", "plus", "-quiet", "-big", "300000"])
+    _db, index = load_db(udb)
+    seqs = [s for _l, s, _q in read_fastx(qf, stream=True)]
+    jbuf = np.ascontiguousarray(np.concatenate(seqs))
+    j_off = np.zeros(len(seqs) + 1, np.int64)
+    np.cumsum([len(x) for x in seqs], out=j_off[1:])
+    outs, walls = {}, {}
+    for n_db in (1, 4):
+        t0 = time.perf_counter()
+        ranker = MeshRanker(single_mesh(dev, n_db), index)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        ranker.rank_window(jbuf, j_off)       # warm-up
+        t0 = time.perf_counter()
+        outs[n_db] = ranker.rank_window(jbuf, j_off)
+        walls[n_db] = (t_build, time.perf_counter() - t0)
+        if n_db == 1:
+            st = ranker_stages(ranker, seqs, jbuf, j_off, dev)
+        del ranker
+        torch.cuda.empty_cache()
+    same = all(np.array_equal(x, y) for x, y in zip(outs[1], outs[4]))
+    print(f"mesh (b) MeshRanker, {len(seqs)} queries x {index.seq_count} "
+          f"targets: 1x1 incidence built in {walls[1][0]:.2f} s, window "
+          f"{walls[1][1]:.3f} s; 1x4 on one card {walls[4][0]:.2f} s, "
+          f"{walls[4][1]:.3f} s; lists {'equal' if same else 'DIFFERENT'} "
+          f"on every job", flush=True)
+    if not same:
+        fail("the 1x4 mesh's candidate lists differ from the 1x1 mesh's")
+    if outs[1][2].min() <= 0:
+        fail("a job of the ranking workload has no candidate on the mesh")
+    return {"walls": walls, **st}
+
+
+def ranker_stages(ranker, seqs, jbuf, j_off, dev):
+    import torch
+    from usearch12_tpu_torch.parallel import incidence as inc
+    rows = min(ranker.chunk_rows, inc.query_rows(len(seqs)))
+    words = [ranker.index.params.unique_words(s) for s in seqs[:rows]]
+    q = {dev: inc.onehot(words, rows, ranker.v_pad, dev)}
+    count_ms, us = cuda_ms(lambda: ranker.count(q, 0), 5)
+    pm_ms, _ = cuda_ms(lambda: ranker.keep(us, ranker.prefix_max(us)), 5)
+    pms = ranker.prefix_max(us)
+    kept = ranker.keep(us, pms)
+
+    def top():
+        keys = ranker.top(kept, 0)
+        return keys, ranker.next_value(keys, pms)
+    top_ms, (keys, nv) = cuda_ms(top, 5)
+    copy_ms, _ = cuda_ms(lambda: (keys.cpu(), nv.cpu()), 5)
+    T, V = ranker.t_pad, ranker.v_pad
+    ub = 4 * rows * T
+    b_count = bound(rows * V + T * V + ub, 2 * rows * V * T, PEAK_INT8)
+    b_pm = bound(3 * ub, 0)          # U read, the prefix maxima and kept out
+    b_top = bound(ub + nbytes_of(keys, nv), 0)
+    b_copy = bound(2 * nbytes_of(keys, nv), 0)
+    # the window's span on the card's stream (CUDA events), then its
+    # kernels by name (torch.profiler)
+    span_ms, _ = cuda_ms(lambda: ranker.rank_window(jbuf, j_off), 1,
+                         warm=False)
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        ranker.rank_window(jbuf, j_off)
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "device_time_total",
+                       getattr(e, "cuda_time_total", 0.0))
+    evs = sorted((e for e in prof.key_averages() if dev_us(e) > 0
+                  and not e.key.startswith("aten::")), key=dev_us,
+                 reverse=True)
+    device_ms = sum(map(dev_us, evs)) / 1000
+    top8 = [(e.key[:48], round(dev_us(e) / 1000, 3), e.count)
+            for e in evs[:8]]
+    chunks = -(-len(seqs) // ranker.chunk_rows)
+    print(f"mesh (b) stages, one chunk of {rows} rows x {T} targets: product "
+          f"{count_ms:.4f} ms (bound {b_count[0]:.4f} by {b_count[1]}), "
+          f"prefix maxima and mask {pm_ms:.4f} ms (bound {b_pm[0]:.4f}), "
+          f"top K, merge, NextValue {top_ms:.4f} ms (bound {b_top[0]:.4f}), "
+          f"copies back {copy_ms:.4f} ms (bound {b_copy[0]:.6f}); the window "
+          f"of {len(seqs)} queries in {chunks} chunks: {span_ms:.3f} ms on "
+          f"the card's stream, {device_ms:.3f} ms of kernels in the profile, "
+          f"top 8 {top8}", flush=True)
+    return {"count_ms": count_ms, "pm_ms": pm_ms, "top_ms": top_ms,
+            "copy_ms": copy_ms, "bounds": (b_count, b_pm, b_top, b_copy),
+            "span_ms": span_ms, "device_ms": device_ms, "chunks": chunks}
+
+
+# one process of phase 10's two-process search: its rank, the gloo port,
+# the query file, the DB, the spliced output, the -big value
+MH_WORKER = """
+import sys
+import torch.distributed as dist
+from usearch12_tpu_torch.cli import parse_argv
+from usearch12_tpu_torch.parallel.multihost import (init_multihost,
+                                                    multihost_search)
+rank, port, qf, db, out, big = sys.argv[1:7]
+init_multihost(f"tcp://127.0.0.1:{port}", 2, int(rank))
+parse_argv(["-usearch_global", qf, "-db", db, "-id", "0.9", "-strand",
+            "plus", "-quiet", "-big", big])
+print(multihost_search(qf, db, out), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def phase_mesh(d, dev, phase_done):
+    """Phase 10 in directory d, after phase 9 (whose workload and host
+    blast6 it reuses): (a) cluster_mt -mesh 1 against the host cluster_mt;
+    (b) usearch_global -mesh 1 on both sides of -big against the host
+    ranker's blast6, and MeshRanker 1x1 against 1x4 on the card; (c) two
+    processes on the card through multihost_search; (d) -xprof."""
+    import socket
+    import torch
+    from usearch12_tpu_torch import cli
+    from usearch12_tpu_torch.parallel import incidence as inc
+    t_phase = time.perf_counter()
+    out = {}
+
+    # (a) cluster_mt -mesh 1
+    reads = os.path.join(d, "mt_reads.fa")
+    t0 = time.perf_counter()
+    gen_reads(reads, MESH_READS)
+    t_gen = time.perf_counter() - t0
+    base = ["-cluster_mt", reads, "-id", "0.97", "-quiet"]
+    res = {}
+    for tag, extra in (("host", []), ("mesh", ["-mesh", "1"])):
+        uc, fa = (os.path.join(d, f"mt_{tag}.{x}") for x in ("uc", "fa"))
+        stats = os.path.join(d, "mt_stats.jsonl")
+        os.environ["USEARCH_DEVICE_STATS"] = stats
+        inc.int8_mm.launches = 0
+        try:
+            t0 = time.perf_counter()
+            rc = cli.main(base + extra + ["-uc", uc, "-centroids", fa])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            os.environ.pop("USEARCH_DEVICE_STATS", None)
+        if rc != 0:
+            fail(f"cluster_mt {extra} exited {rc}")
+        with open(uc, "rb") as f, open(fa, "rb") as g:
+            res[tag] = (f.read(), g.read(), wall, inc.int8_mm.launches)
+    ds = read_stats(stats)
+    same = res["host"][:2] == res["mesh"][:2]
+    print(f"mesh (a) cluster_mt, {MESH_READS} reads (bench.py's 100,400 "
+          f"cut to {MESH_READS}; written in {t_gen:.1f} s), -id 0.97: host "
+          f"{res['host'][2]:.2f} s, -mesh 1 {res['mesh'][2]:.2f} s; "
+          f"{ds['centroids']} centroids, capacity {ds['cap']}, "
+          f"{ds['incidence_bytes']} incidence bytes, {ds['windows']} "
+          f"windows, {ds['flushes']} flushes, {ds['allocs']} allocations, "
+          f"count {ds['count_ms'] / max(ds['windows'], 1):.4f} ms of device "
+          f"time a window ({ds['count_ms']:.1f} ms in all), int8_mm "
+          f"launches {res['mesh'][3]}, host_ranked {ds['host_ranked']}; -uc "
+          f"and -centroids {'equal' if same else 'DIFFERENT'}", flush=True)
+    if not same or not res["host"][0]:
+        fail("cluster_mt -mesh 1 differs from the host cluster_mt")
+    if res["mesh"][3] != ds["windows"] or ds["incidence_bytes"] < 1 << 29:
+        fail(f"cluster_mt -mesh 1: {res['mesh'][3]} products for "
+             f"{ds['windows']} windows, {ds['incidence_bytes']} bytes")
+    out["a"] = {"host_s": res["host"][2], "mesh_s": res["mesh"][2], **ds,
+                **u_count_stages(reads, os.path.join(d, "mt_mesh.fa"), dev)}
+    del res
+
+    # (b) usearch_global -mesh 1 on phase 9's workload
+    udb, qf = os.path.join(d, "bigdb.udb"), os.path.join(d, "bigq.fa")
+    ub = ["-usearch_global", qf, "-db", udb, "-id", "0.9", "-strand", "plus",
+          "-quiet"]
+    with open(qf) as f:
+        n_q = sum(1 for line in f if line.startswith(">"))
+    refs = {}
+    for tag, big_opts in (("sorted", ["-big", "300000"]), ("big", [])):
+        with open(os.path.join(d, f"rank_{tag}_host.b6"), "rb") as f:
+            refs[tag] = f.read()
+        b6 = os.path.join(d, f"mesh_{tag}.b6")
+        stats = os.path.join(d, "mesh_stats.jsonl")
+        os.environ["USEARCH_DEVICE_STATS"] = stats
+        inc.int8_mm.launches = 0
+        try:
+            t0 = time.perf_counter()
+            rc = cli.main(ub + big_opts + ["-mesh", "1", "-blast6out", b6])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            os.environ.pop("USEARCH_DEVICE_STATS", None)
+        ds = read_stats(stats)
+        with open(b6, "rb") as f:
+            same = f.read() == refs[tag]
+        n = inc.int8_mm.launches
+        print(f"mesh (b) usearch_global -mesh 1 {' '.join(big_opts) or ''}"
+              f"{'' if big_opts else '(default -big: UDBSearchBig)'}: "
+              f"{wall:.2f} s; rank_device_jobs {ds['rank_device_jobs']}, "
+              f"rank_host_rerank_jobs {ds['rank_host_rerank_jobs']}, "
+              f"int8_mm launches {n}; blast6 "
+              f"{'equal' if same else 'DIFFERENT'} to the host ranker's",
+              flush=True)
+        if rc != 0 or not same or ds["rank_device_jobs"] != n_q:
+            fail(f"usearch_global -mesh 1 {big_opts}: blast6 differs or "
+                 f"{ds['rank_device_jobs']} jobs on the mesh")
+        if (n > 0) != (tag == "sorted"):
+            fail(f"usearch_global -mesh 1 {big_opts}: {n} int8 products")
+        out[f"b_{tag}_s"] = wall
+        torch.cuda.empty_cache()
+    out["b"] = mesh_stages(udb, qf, dev)
+
+    # (c) two processes on the card, gloo between them
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = str(s.getsockname()[1])
+    mh = os.path.join(d, "mh.b6")
+    t0 = time.perf_counter()
+    workers = [subprocess.Popen(
+        [sys.executable, "-c", MH_WORKER, str(r), port, qf, udb, mh,
+         "300000"], cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    try:
+        res = [w.communicate(timeout=400) for w in workers]
+    finally:
+        for w in workers:
+            w.kill()
+    t_mh = time.perf_counter() - t0
+    for w, (so, se) in zip(workers, res):
+        if w.returncode != 0:
+            fail(f"multihost worker exited {w.returncode}: {se[-2000:]}")
+    with open(mh, "rb") as f:
+        same = f.read() == refs["sorted"]
+    print(f"mesh (c) multihost_search, 2 processes on one card over gloo, "
+          f"-big 300000, 220,000 targets: {t_mh:.2f} s; "
+          f"{[so.strip().splitlines()[-1] for so, _se in res]}; spliced "
+          f"blast6 {'equal' if same else 'DIFFERENT'}", flush=True)
+    if not same:
+        fail("the two-process spliced blast6 differs from one process's")
+    out["c_s"] = t_mh
+
+    # (d) -xprof on the first 200 queries
+    q200 = os.path.join(d, "bigq200.fa")
+    with open(qf) as f, open(q200, "w") as g:
+        g.writelines(f.readlines()[:400])
+    xdir = os.path.join(d, "xprof")
+    t0 = time.perf_counter()
+    rc = cli.main(["-usearch_global", q200, "-db", udb, "-id", "0.9",
+                   "-strand", "plus", "-quiet", "-mesh", "1", "-blast6out",
+                   os.path.join(d, "x.b6"), "-xprof", xdir])
+    t_x = time.perf_counter() - t0
+    traces = os.listdir(xdir) if os.path.isdir(xdir) else []
+    n_kernels = 0
+    if rc == 0 and len(traces) == 1:
+        with open(os.path.join(xdir, traces[0])) as f:
+            ev = json.load(f)["traceEvents"]
+        n_kernels = sum(1 for e in ev if e.get("cat") == "kernel")
+    print(f"mesh (d) -xprof: 200 queries, {t_x:.2f} s, trace {traces}, "
+          f"{n_kernels} CUDA kernel events", flush=True)
+    if rc != 0 or n_kernels == 0:
+        fail("-xprof wrote no trace with CUDA kernel events")
+    phase_done(10, t_phase)
+    return out
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "usearch12_tpu_torch")):
         fail("run from a checkout of the repository (no "
@@ -1789,6 +2158,8 @@ def main():
     # 9. usearch_global's ranking on the card
     with tempfile.TemporaryDirectory() as d:
         phase_rank(d, dev, phase_done)
+        # 10. the mesh paths, on phase 9's files
+        phase_mesh(d, dev, phase_done)
 
     def row(name, source, replaces, n, err, ms, plain_ms, bnd,
             library_ms=None, kernel_ms=None):

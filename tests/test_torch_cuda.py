@@ -449,8 +449,27 @@ def test_csr_ranker_on_card_matches_cpu(card, tmp_path, extra):
     from usearch12_tpu_torch.io.fastx import read_fastx
     from usearch12_tpu_torch.io.seqdb import SeqDB
     from usearch12_tpu_torch.ops.csr_rank import CSRDeviceRanker
-    # 80 templates of 200 nt, 5 copies of each with 1-8 substitutions: 300
-    # targets and 100 queries
+    db_fa, q_fa = _rank_db(tmp_path)
+    parse_argv(["-usearch_global", q_fa, "-db", db_fa, "-id", "0.9",
+                "-strand", "plus", "-quiet", *extra])
+    db = SeqDB.from_fastx(db_fa)
+    db.mask()
+    index = UDBIndex.from_seqdb(db)
+    seqs = [s for _l, s, _q in read_fastx(q_fa, stream=True)]
+    jbuf = np.ascontiguousarray(np.concatenate(seqs))
+    j_off = np.zeros(len(seqs) + 1, np.int64)
+    np.cumsum([len(s) for s in seqs], out=j_off[1:])
+    got = CSRDeviceRanker(index, card, chunk_b=32).rank_window(jbuf, j_off)
+    want = CSRDeviceRanker(index, torch.device("cpu"),
+                           chunk_b=32).rank_window(jbuf, j_off)
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and np.array_equal(x, y)
+    assert got[2].min() > 0
+
+
+def _rank_db(tmp_path):
+    """80 templates of 200 nt, 5 copies of each with 1-8 substitutions:
+    300 targets and 100 queries."""
     rng = np.random.default_rng(43)
     conv = np.frombuffer(b"ACGT", np.uint8)
     recs = []
@@ -466,6 +485,53 @@ def test_csr_ranker_on_card_matches_cpu(card, tmp_path, extra):
     for path, part in ((db_fa, order[:300]), (q_fa, order[300:])):
         with open(path, "w") as f:
             f.writelines(f">s{i}\n{recs[i]}\n" for i in part)
+    return db_fa, q_fa
+
+
+@pytest.mark.parametrize("n_queries,n_targets", [(64, 296), (5, 13)])
+def test_u_counter_on_card_matches_cpu(card, tmp_path, n_queries,
+                                       n_targets):
+    """DeviceUCounter.count on cuda:0 (torch._int_mm) equals its CPU run:
+    64 queries against 296 centroids (the product's sizes as they come),
+    and 5 against 13 (rows and centroids padded), after a first
+    allocation and after rows written in place."""
+    from usearch12_tpu_torch.cli import parse_argv
+    from usearch12_tpu_torch.index.udb import UDBIndex, UDBParams
+    from usearch12_tpu_torch.io.fastx import read_fastx
+    from usearch12_tpu_torch.parallel.cluster_batch import DeviceUCounter
+    from usearch12_tpu_torch.parallel.mesh import single_mesh
+    db_fa, q_fa = _rank_db(tmp_path)
+    parse_argv(["-cluster_mt", db_fa, "-id", "0.97", "-quiet"])
+    seqs = [s for _l, s, _q in read_fastx(db_fa, stream=True)]
+    queries = [s for _l, s, _q in read_fastx(q_fa, stream=True)][:n_queries]
+    index = UDBIndex(UDBParams.global_usearch(True))
+    counters = [DeviceUCounter(single_mesh(d)) for d in (card, "cpu")]
+    for lo, hi in ((0, n_targets - 3), (n_targets - 3, n_targets)):
+        for k in range(lo, hi):
+            index.add_seq(k, seqs[k])
+            index.seq_count = k + 1
+        for c in counters:
+            c.note_admitted(index, seqs[lo:hi])
+            c.refresh(index)
+        got, want = (c.count(index, queries) for c in counters)
+        assert got.shape == (n_queries, hi) and np.array_equal(got, want)
+    assert counters[0].stats["allocs"] == 1 and got.max() > 0
+    assert counters[0].stats["count_ms"] > 0
+
+
+@pytest.mark.parametrize("n_db,extra", [(1, []), (4, []),
+                                        (4, ["-big", "10"])])
+def test_mesh_ranker_on_card_matches_cpu(card, tmp_path, n_db, extra):
+    """MeshRanker on a 1 x n_db mesh of cuda:0 equals its CPU run (below
+    -big: the sharded product, prefix maxima and top K; above it: the CSR
+    ranker's big mode)."""
+    from usearch12_tpu_torch.cli import parse_argv
+    from usearch12_tpu_torch.index.udb import UDBIndex
+    from usearch12_tpu_torch.io.fastx import read_fastx
+    from usearch12_tpu_torch.io.seqdb import SeqDB
+    from usearch12_tpu_torch.parallel.mesh import single_mesh
+    from usearch12_tpu_torch.parallel.mesh_search import MeshRanker
+    db_fa, q_fa = _rank_db(tmp_path)
     parse_argv(["-usearch_global", q_fa, "-db", db_fa, "-id", "0.9",
                 "-strand", "plus", "-quiet", *extra])
     db = SeqDB.from_fastx(db_fa)
@@ -475,9 +541,8 @@ def test_csr_ranker_on_card_matches_cpu(card, tmp_path, extra):
     jbuf = np.ascontiguousarray(np.concatenate(seqs))
     j_off = np.zeros(len(seqs) + 1, np.int64)
     np.cumsum([len(s) for s in seqs], out=j_off[1:])
-    got = CSRDeviceRanker(index, card, chunk_b=32).rank_window(jbuf, j_off)
-    want = CSRDeviceRanker(index, torch.device("cpu"),
-                           chunk_b=32).rank_window(jbuf, j_off)
+    got, want = (MeshRanker(single_mesh(torch.device(d), n_db), index)
+                 .rank_window(jbuf, j_off) for d in (card, "cpu"))
     for x, y in zip(got, want):
         assert x.dtype == y.dtype and np.array_equal(x, y)
     assert got[2].min() > 0

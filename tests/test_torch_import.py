@@ -71,6 +71,17 @@ CASES = {
         [["-sintax", "q.fa", "-db", "db.fa", "-strand", "both",
           "-tabbedout", "tax.txt"]],
         ["tax.txt"]),
+    "mesh": (
+        "sintax",
+        [["-usearch_global", "q.fa", "-db", "db.fa", "-id", "0.9",
+          "-strand", "both", "-mesh", "2x4", "-blast6out", "m.b6"],
+         ["-cluster_mt", "q.fa", "-id", "0.9", "-mesh", "1x2", "-uc", "mt.uc",
+          "-centroids", "mt.fa"]],
+        [["-usearch_global", "q.fa", "-db", "db.fa", "-id", "0.9",
+          "-strand", "both", "-blast6out", "m.b6"],
+         ["-cluster_mt", "q.fa", "-id", "0.9", "-uc", "mt.uc", "-centroids",
+          "mt.fa"]],
+        ["m.b6", "mt.uc", "mt.fa"]),
     "host_commands": (
         "fastq",
         [["-cluster_fast", "db.fa", "-id", "0.9", "-centroids", "c.fa",
@@ -86,9 +97,9 @@ CASES = {
 @pytest.mark.parametrize("case", list(CASES))
 def test_commands_run_with_jax_package_blocked(tmp_path, case):
     """usearch_global on the engine path (its kernels' plain versions on
-    the CPU), sintax on the card's path, and three host commands, in a
-    process where neither jax nor usearch12_tpu can be imported; the
-    outputs equal the JAX package's on the same inputs."""
+    the CPU), sintax on the card's path, the -mesh paths, and three host
+    commands, in a process where neither jax nor usearch12_tpu can be
+    imported; the outputs equal the JAX package's on the same inputs."""
     inputs, port_cmds, jax_cmds, outs = CASES[case]
     dirs = {k: tmp_path / k for k in ("port", "jax")}
     for d in dirs.values():

@@ -101,27 +101,30 @@ def test_cli_needs_a_card_unless_cpu_is_passed(contigs, monkeypatch):
                       + ["-blast6out", "/dev/null"])
 
 
-@pytest.mark.parametrize("extra", [["-mesh", "2"], ["-mesh", "auto"],
-                                   ["-xprof", "trace"]])
-def test_unported_paths_say_so(contigs, capsys, extra):
-    """The device paths still to be ported exit 2 before any output."""
-    d, qf, tf, _ = contigs
-    out = d / "unported.b6"
-    assert port_cli.main(["-usearch_global", qf, "-db", tf] + COMMON
-                         + ["-blast6out", str(out)] + extra,
-                         device="cpu") == 2
-    assert f"{extra[0]}: not yet ported" in capsys.readouterr().err
-    assert not out.exists()
-
-
-def test_other_commands_exit_2(capsys):
-    """-mesh on cluster_mt and -xprof on any command exit 2."""
-    assert port_cli.main(["-cluster_mt", "x.fa", "-id", "0.9", "-mesh",
-                          "2"], device="cpu") == 2
-    assert "-mesh: not yet ported" in capsys.readouterr().err
-    assert port_cli.main(["-cluster_fast", "x.fa", "-id", "0.9", "-xprof",
-                          "trace"], device="cpu") == 2
-    assert "-xprof: not yet ported" in capsys.readouterr().err
+@pytest.mark.parametrize("cmd", ["usearch_global", "cluster_fast"])
+def test_xprof_writes_a_trace(contigs, monkeypatch, cmd):
+    """-xprof DIR writes a Chrome trace of the command (torch.profiler)
+    into DIR, and every output byte is that of the run without it: the
+    engine path (the kernels' plain versions) and a host command."""
+    import json
+    d, qf, tf, ref = contigs
+    if cmd == "usearch_global":
+        args = ["-usearch_global", qf, "-db", tf] + COMMON + [
+            "-dev_batch_cells", "1", "-blast6out"]
+    else:
+        args = ["-cluster_fast", tf, "-id", "0.5", "-quiet", "-uc"]
+    outs = {}
+    for tag, extra in (("plain", []), ("xprof", ["-xprof", str(d / cmd)])):
+        out = d / f"{cmd}_{tag}.out"
+        assert port_cli.main(args + [str(out)] + extra, device="cpu") == 0
+        outs[tag] = out.read_bytes()
+    assert outs["xprof"] == outs["plain"] and outs["plain"]
+    if cmd == "usearch_global":
+        assert outs["plain"] == ref[0]
+    traces = list((d / cmd).iterdir())
+    assert len(traces) == 1 and traces[0].name.endswith(".trace.json")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    assert any(e.get("ph") == "X" for e in events)
 
 
 def test_holes_wider_than_the_kernel_run_on_host(contigs, monkeypatch):

@@ -11,10 +11,12 @@ pairs populate the option registry.
     python -m usearch12_tpu_torch.cli -sintax q.fa -db ref.fa \\
         -strand both -tabbedout tax.txt
 
-Every command writes the bytes that the JAX package's CLI writes.
-Two device paths are not ported yet and exit 2: -mesh (usearch_global,
-cluster_mt) and -xprof.  torch is imported only by the paths that run on
-the card, so a host command starts as fast as in the JAX package.
+Every command writes the bytes that the JAX package's CLI writes, with
+every option of that CLI: -mesh DATAxDB (usearch_global, cluster_mt) runs
+on a mesh of cards, or of CPU entries when the caller passes the CPU, and
+-xprof DIR writes a torch.profiler Chrome trace of the command into DIR.
+torch is imported only by the paths that run on the card and by -xprof,
+so a host command starts as fast as in the JAX package.
 """
 
 from __future__ import annotations
@@ -93,15 +95,29 @@ def parse_argv(argv: List[str]):
     return cmd, cmd_arg
 
 
+def _profiler(device: DeviceLike):
+    """torch.profiler over the whole command for -xprof DIR, started; CUDA
+    activity too unless the caller passed the CPU or there is no card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available() and (
+            device is None or torch.device(device).type == "cuda"):
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
 
-def _unported(cmd: str) -> List[str]:
-    o = options()
-    out = []
-    if cmd in ("usearch_global", "cluster_mt") and o.filled("mesh"):
-        out.append("-mesh")
-    if o.filled("xprof"):
-        out.append("-xprof")
-    return out
+
+def _write_trace(prof, cmd: str, xprof: str) -> None:
+    """Stop the profiler and write its Chrome trace into the directory
+    xprof."""
+    import os
+    prof.stop()
+    os.makedirs(xprof, exist_ok=True)
+    path = os.path.join(xprof, f"usearch12_tpu_torch.{cmd}.{os.getpid()}"
+                        ".trace.json")
+    prof.export_chrome_trace(path)
 
 
 def main(argv: Optional[List[str]] = None,
@@ -118,11 +134,6 @@ def main(argv: Optional[List[str]] = None,
     if cmd == "version":
         print(f"usearch12_tpu v{__version__}")
         return 0
-    unported = _unported(cmd)
-    if unported:
-        print(f"{', '.join(unported)}: not yet ported to "
-              "usearch12_tpu_torch", file=sys.stderr)
-        return 2
     o = options()
     f_log = None
     if o.filled("log"):
@@ -135,8 +146,16 @@ def main(argv: Optional[List[str]] = None,
         f_log.write(time.strftime("Started %a %b %d %H:%M:%S %Y\n\n"))
     t0 = time.time()
     from . import commands
+    # -xprof DIR: a torch.profiler trace of the whole command, the
+    # counterpart of the JAX package's jax.profiler trace
+    xprof = o.str("xprof") if o.filled("xprof") else None
     try:
-        commands.run(cmd, cmd_arg, device)
+        prof = _profiler(device) if xprof else None
+        try:
+            commands.run(cmd, cmd_arg, device)
+        finally:
+            if prof is not None:
+                _write_trace(prof, cmd, xprof)
         o.flag("quiet")
         if o.filled("threads"):
             o.uns("threads")

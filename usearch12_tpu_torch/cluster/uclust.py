@@ -367,129 +367,145 @@ def _write_clusters(prefix: str, state: ClusterState,
                                 o.uns("fasta_cols"))
 
 
+class MtCentroids:
+    """cluster_mt's centroid set (src/clustermt.cpp) and the search of one
+    query against it: the UDB index of the centroids, the aligner (the C
+    fast loop where it applies) and the accept/terminate replay in a
+    candidate order.  The host path ranks with USortedRanker;
+    parallel/cluster_batch.py ranks from word counts made on the card and
+    aligns here, so both write the same bytes."""
+
+    def __init__(self, input_path: Optional[str]) -> None:
+        o = options()
+        if not o.filled("id"):
+            raise SystemExit("Must set -id")
+        self.max_pending = (o.uns("maxpending") if o.filled("maxpending")
+                            else 128)
+        self.nucleo = SeqDB.from_fastx(input_path).get_is_nucleo()
+        self.ap = AlnParams.from_cmdline(self.nucleo)
+        self.ah = AlnHeuristics.from_cmdline(self.ap)
+        self.index = UDBIndex(UDBParams.global_usearch(self.nucleo))
+        self.ranker = USortedRanker(self.index)
+        self.accepter = Accepter(is_global=True)
+        self.terminator = Terminator("cluster_mt")
+        self.native = None
+        if not o.flag("use_cpu_oracle"):
+            try:
+                from ..native import NativeAligner
+                self.native = NativeAligner(self.ap, self.ah)
+            except Exception:
+                self.native = None
+        from ..align.hsp import HSPFinder
+        self.hf = HSPFinder(self.ap, self.ah)
+        self.fail = not o.flag("gaforce")
+        self.labels: List[str] = []
+        self.seqs: List[np.ndarray] = []
+        from ..search.driver import fast_loop_eligible
+        self.fast = (self.native is not None
+                     and fast_loop_eligible(self.accepter))
+        if self.fast:
+            self.native.db_view_clear()
+
+    def search(self, q_label, q_seq, tix_order=None):
+        """Top hit (AlignResult) of the query among the centroids, or None;
+        tix_order: the candidates in rank order (default: the host
+        ranker's)."""
+        from ..align.global_aligner import global_align
+        from ..search.driver import fast_search_hits
+        hm = HitMgr()
+        term = self.terminator
+        term.on_new_query()
+        if tix_order is None:
+            tix_order, _c = self.ranker.rank(q_seq)
+        if not len(tix_order):
+            return None
+        native, nucleo = self.native, self.nucleo
+        if self.fast:
+            hits = fast_search_hits(native, q_seq, np.asarray(tix_order),
+                                    term.max_accepts, term.max_rejects,
+                                    self.ah.full_dp_always)
+            for tix, path in hits:
+                hm.append_hit(AlignResult(
+                    query_label=q_label, target_label=self.labels[tix],
+                    query_seq=q_seq, target_seq=self.seqs[tix],
+                    path=path, nucleo=nucleo, target_index=tix))
+            return hm.top_hit()
+        if native is not None:
+            native.set_a(q_seq)
+        else:
+            self.hf.set_a(q_seq)
+        for tix in np.asarray(tix_order).tolist():
+            t_label = self.labels[tix]
+            t_seq = self.seqs[tix]
+            if self.accepter.reject_pair(q_label, q_seq, t_label, t_seq):
+                continue
+            if native is not None:
+                native.set_b(t_seq)
+                path = native.global_align(fail_if_no_hsps=self.fail)
+            else:
+                self.hf.set_b(t_seq)
+                path = global_align(q_seq, t_seq, self.ap, self.ah, self.hf,
+                                    fail_if_no_hsps=self.fail)
+            accept = False
+            if path is not None:
+                ar = AlignResult(query_label=q_label, target_label=t_label,
+                                 query_seq=q_seq, target_seq=t_seq,
+                                 path=path, nucleo=nucleo, target_index=tix)
+                accept = self.accepter.is_accept(ar)
+                if accept:
+                    hm.append_hit(ar)
+            if term.terminate(hm, accept):
+                break
+        return hm.top_hit()
+
+    def admit(self, q_label, q_seq) -> int:
+        ci = len(self.labels)
+        self.labels.append(q_label)
+        self.seqs.append(q_seq)
+        self.index.add_seq(ci, q_seq)
+        self.index.seq_count = ci + 1
+        if self.fast:
+            self.native.db_view_append(q_seq)
+        return ci
+
+    def write_centroids(self) -> None:
+        o = options()
+        if o.filled("centroids"):
+            with open(o.str("centroids"), "w") as f:
+                for lbl, s in zip(self.labels, self.seqs):
+                    write_fasta(f, lbl, s, o.uns("fasta_cols"))
+
+
 def cluster_mt(input_path: Optional[str]) -> None:
     """cluster_mt (src/clustermt.cpp): batch-synchronous greedy clustering.
 
     Queries stream against the frozen centroid set; misses buffer as
     "pending" until maxpending (128), then are re-searched serially with
     admissions applied in order.  This is the schedule that makes greedy
-    clustering batchable on TPU: the search phase is embarrassingly
-    parallel over the pending window, admissions are serialized."""
+    clustering batchable on a device: the search phase is embarrassingly
+    parallel over the pending window, admissions are serialized
+    (parallel/cluster_batch.py)."""
     o = options()
-    if not o.filled("id"):
-        raise SystemExit("Must set -id")
-    max_pending = o.uns("maxpending") if o.filled("maxpending") else 128
-
-    input_db = SeqDB.from_fastx(input_path)
-    nucleo = input_db.get_is_nucleo()
-    ap = AlnParams.from_cmdline(nucleo)
-    ah = AlnHeuristics.from_cmdline(ap)
-    params = UDBParams.global_usearch(nucleo)
-    index = UDBIndex(params)
-    ranker = USortedRanker(index)
-    accepter = Accepter(is_global=True)
-    terminator = Terminator("cluster_mt")
-
-    native = None
-    if not o.flag("use_cpu_oracle"):
-        try:
-            from ..native import NativeAligner
-            native = NativeAligner(ap, ah)
-        except Exception:
-            native = None
-    from ..align.hsp import HSPFinder
-    from ..align.global_aligner import global_align
-    hf = HSPFinder(ap, ah)
-
-    centroid_labels: List[str] = []
-    centroid_seqs: List[np.ndarray] = []
+    mt = MtCentroids(input_path)
     f_uc = open(o.str("uc"), "w") if o.filled("uc") else None
-    fail = not o.flag("gaforce")
-
-    from ..search.driver import fast_loop_eligible, fast_search_hits
-    fast = native is not None and fast_loop_eligible(accepter)
-    if fast:
-        native.db_view_clear()
-
-    def search_one(q_label, q_seq):
-        """Search vs current centroids; returns top hit AR or None."""
-        hm = HitMgr()
-        terminator.on_new_query()
-        tix_order, _c = ranker.rank(q_seq)
-        if len(tix_order) and fast:
-            hits = fast_search_hits(native, q_seq, tix_order,
-                                    terminator.max_accepts,
-                                    terminator.max_rejects,
-                                    ah.full_dp_always)
-            for tix, path in hits:
-                hm.append_hit(AlignResult(
-                    query_label=q_label, target_label=centroid_labels[tix],
-                    query_seq=q_seq, target_seq=centroid_seqs[tix],
-                    path=path, nucleo=nucleo, target_index=tix))
-            return hm.top_hit()
-        if len(tix_order):
-            if native is not None:
-                native.set_a(q_seq)
-            else:
-                hf.set_a(q_seq)
-            for tix in tix_order.tolist():
-                t_label = centroid_labels[tix]
-                t_seq = centroid_seqs[tix]
-                if accepter.reject_pair(q_label, q_seq, t_label, t_seq):
-                    continue
-                if native is not None:
-                    native.set_b(t_seq)
-                    path = native.global_align(fail_if_no_hsps=fail)
-                else:
-                    hf.set_b(t_seq)
-                    path = global_align(q_seq, t_seq, ap, ah, hf,
-                                        fail_if_no_hsps=fail)
-                accept = False
-                if path is not None:
-                    ar = AlignResult(query_label=q_label,
-                                     target_label=t_label,
-                                     query_seq=q_seq, target_seq=t_seq,
-                                     path=path, nucleo=nucleo,
-                                     target_index=tix)
-                    accept = accepter.is_accept(ar)
-                    if accept:
-                        hm.append_hit(ar)
-                if terminator.terminate(hm, accept):
-                    break
-        return hm.top_hit()
-
-    def admit(q_label, q_seq) -> int:
-        ci = len(centroid_labels)
-        centroid_labels.append(q_label)
-        centroid_seqs.append(q_seq)
-        index.add_seq(ci, q_seq)
-        index.seq_count = ci + 1
-        if fast:
-            native.db_view_append(q_seq)
-        return ci
-
     from ..io.fastx import read_fastx
     pending = []
     for label, seq, _qual in read_fastx(input_path, stream=True):
         if len(seq) == 0:
             continue
-        top = search_one(label, seq)
+        top = mt.search(label, seq)
         if top is None:
             pending.append((label, seq))
-            if len(pending) >= max_pending:
-                _process_pending(pending, search_one, admit, f_uc)
+            if len(pending) >= mt.max_pending:
+                _process_pending(pending, mt.search, mt.admit, f_uc)
         else:
             if f_uc:
                 f_uc.write(_uc_hit_line(top, label))
-    _process_pending(pending, search_one, admit, f_uc)
+    _process_pending(pending, mt.search, mt.admit, f_uc)
 
     if f_uc:
         f_uc.close()
-    if o.filled("centroids"):
-        from ..io.fastx import write_fasta
-        with open(o.str("centroids"), "w") as f:
-            for lbl, s in zip(centroid_labels, centroid_seqs):
-                write_fasta(f, lbl, s, o.uns("fasta_cols"))
+    mt.write_centroids()
 
 
 def _process_pending(pending, search_one, admit, f_uc) -> None:

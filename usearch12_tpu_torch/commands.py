@@ -3,11 +3,10 @@
 Each mirrors a reference pipeline (src/searchcmd.cpp, src/clusterfast.cpp,
 etc.), composed from the package's engine layers.  usearch_global aligns
 its holes on the card (engine/batch.py) and may rank there
-(ops/csr_rank.py), and sintax may run its boots there
-(amplicon/sintax.py); every other command runs on the host.  The device
-paths still to be ported (-mesh, -xprof) are refused by the CLI before a
-command starts.  torch is imported only when a
-command runs on the card.
+(ops/csr_rank.py, or over a -mesh: parallel/mesh_search.py), sintax may
+run its boots there (amplicon/sintax.py), and cluster_mt -mesh counts its
+words there (parallel/cluster_batch.py); every other command runs on the
+host.  torch is imported only when a command runs on the card.
 """
 
 from __future__ import annotations
@@ -58,7 +57,7 @@ def run(cmd: str, cmd_arg: Optional[str], device: DeviceLike) -> None:
     """Run command `cmd` (a name of cli.COMMANDS other than version);
     `device` reaches the commands that run on the card."""
     fn = globals()[f"cmd_{cmd}"]
-    if cmd in ("usearch_global", "sintax"):
+    if cmd in ("usearch_global", "sintax", "cluster_mt"):
         fn(cmd_arg, device)
     else:
         fn(cmd_arg)
@@ -66,6 +65,20 @@ def run(cmd: str, cmd_arg: Optional[str], device: DeviceLike) -> None:
 
 _OUTPUTS = ("blast6out", "alnout", "uc", "matched", "notmatched",
             "fastapairs", "userout", "qsegout", "tsegout", "trimout")
+
+
+def _mesh(device: DeviceLike):
+    """The Mesh of -mesh (parallel/mesh.py), or None when the option is
+    unset: "DATAxDB", a device count, or "auto", on `device`'s kind (the
+    CUDA cards, or the CPU when the caller passes it).  usearch_global
+    ranks over it (parallel/mesh_search.py) and cluster_mt counts its
+    words over it (parallel/cluster_batch.py), as in the JAX package
+    (usearch12_tpu/commands.py:195-248)."""
+    o = options()
+    if not o.filled("mesh"):
+        return None
+    from .parallel.mesh import make_mesh
+    return make_mesh(o.str("mesh"), device)
 
 
 # the DB size from which usearch_global would rank on the engine's device
@@ -96,7 +109,8 @@ def cmd_usearch_global(query_path: Optional[str],
     (src/searchcmd.cpp:6-50, src/search.cpp:89-141): the batch engine,
     with the hole DP on `device` unless -no_engine_device and the ranking
     there where _device_rank says, where it takes the run, else the serial
-    driver."""
+    driver.  With -mesh the engine ranks over the mesh's devices and
+    aligns on the host (parallel/mesh_search.py)."""
     o = options()
     if query_path is None:
         query_path = o.str("query")
@@ -157,9 +171,24 @@ def cmd_usearch_global(query_path: Optional[str],
 
     try:
         xlat = (not db.get_is_nucleo()) and file_is_nucleo(query_path)
-        if engine_eligible("usearch_global", db.get_is_nucleo(), xlat) \
-                and not (db_index is not None and db_index.params.hashed) \
-                and not o.flag("use_serial_driver"):
+        eligible = engine_eligible("usearch_global", db.get_is_nucleo(),
+                                   xlat) \
+            and not (db_index is not None and db_index.params.hashed)
+        only_b6 = f.keys() == {"blast6out"} and dbhit is None
+        mesh = _mesh(device)
+        if mesh is not None:
+            if not eligible:
+                raise SystemExit("-mesh requires an engine-eligible "
+                                 "usearch_global run (global id search, "
+                                 "non-hashed index)")
+            from .parallel.mesh_search import mesh_search_file
+            fast_emit = None
+            if only_b6:
+                from .engine.emit import Blast6Emitter
+                fast_emit = Blast6Emitter(f["blast6out"], db, no_hits)
+            mesh_search_file(query_path, db, mesh, on_query_done,
+                             fast_emit=fast_emit, index=db_index)
+        elif eligible and not o.flag("use_serial_driver"):
             from .engine import BatchEngine
             dev = None
             if not o.flag("no_engine_device"):
@@ -177,7 +206,7 @@ def cmd_usearch_global(query_path: Optional[str],
                     else resolve_device(device),
                     topk=max(64, eng.max_accepts + eng.max_rejects))
                 rank_override = make_engine_override(ranker, eng)
-            if f.keys() == {"blast6out"} and dbhit is None:
+            if only_b6:
                 from .engine.emit import Blast6Emitter
                 eng.run_file(query_path, on_query_done,
                              fast_emit=Blast6Emitter(f["blast6out"], db,
@@ -357,7 +386,16 @@ def cmd_fastq_filter2(input_path: Optional[str]) -> None:
     fastq_filter2(input_path)
 
 
-def cmd_cluster_mt(input_path: Optional[str]) -> None:
+def cmd_cluster_mt(input_path: Optional[str],
+                   device: DeviceLike = None) -> None:
+    """cluster_mt; with -mesh its word counting runs on the mesh's devices
+    in batch-synchronous rounds (parallel/cluster_batch.py), writing the
+    host path's bytes."""
+    mesh = _mesh(device)
+    if mesh is not None:
+        from .parallel.cluster_batch import cluster_mt_batched
+        cluster_mt_batched(input_path, mesh)
+        return
     from .cluster.uclust import cluster_mt
     cluster_mt(input_path)
 

@@ -32,7 +32,7 @@ from __future__ import annotations
 import ctypes
 import os
 import tempfile
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -735,14 +735,16 @@ class BatchEngine:
     # -- file driver -----------------------------------------------------
     def run_file(self, query_path: str, on_query_done: Callable,
                  window: int = 8192, fast_emit=None,
-                 rank_override: Optional[Callable] = None) -> None:
+                 rank_override: Optional[Callable] = None,
+                 records: Optional[Tuple[int, int]] = None) -> None:
         """Stream the query file through the engine.  on_query_done(label,
         seq, hits) per record in input order (hits = AlignResult list in
         acceptance order, fwd strand first — identical to the serial
         driver).  fast_emit, when given, is called as
         fast_emit(win, rec_lo, rec_hi, per_rec_hits) instead of building
         AlignResult objects.  rank_override: see search_window; the
-        windows then run one after another."""
+        windows then run one after another.  records: the (lo, hi) range
+        of the file's records to search (default: all)."""
         o = options()
         strand_both = False
         if self.nucleo:
@@ -779,7 +781,8 @@ class BatchEngine:
                 return _proc_label(raw)
             return raw.decode("latin1")
 
-        n_windows = max(1, (n + window - 1) // window)
+        r_lo, r_hi = records if records is not None else (0, n)
+        n_windows = max(1, (r_hi - r_lo + window - 1) // window)
         soff = win.seq_off
 
         def build_window(lo, hi):
@@ -864,7 +867,8 @@ class BatchEngine:
                     on_query_done(label, seq, hits)
             progress.tick(hi, n)
 
-        bounds = [(lo, min(lo + window, n)) for lo in range(0, n, window)]
+        bounds = [(lo, min(lo + window, r_hi))
+                  for lo in range(r_lo, r_hi, window)]
         n_threads = _thread_count()
         if n_threads > 1 and len(bounds) > 1 and rank_override is None:
             # per-thread scratch; ex.map preserves window order, so the

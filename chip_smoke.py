@@ -88,7 +88,31 @@ Phases, each printing a line, any failure exits non-zero:
      chunk of rows beside their bounds and the window's profile; (c) two
      processes on the card through multihost_search (gloo), the spliced
      blast6 equal to (b)'s at -big 300000; (d) -xprof on 200 queries,
-     whose trace must hold CUDA kernel events.
+     whose trace must hold CUDA kernel events;
+ 11. server: the resident device server (device_server.py), its socket
+     under the phase's own TMPDIR, driven by fresh processes of the
+     port's command line in which torch, jax and usearch12_tpu cannot be
+     imported: (a) phase 9's workload with -device_rank at the default
+     -big spawns it (the client's wall time, the server's start split into
+     torch's import, the CUDA start and the kernel load), blast6 equal to
+     phase 9's host judge, rank_device_jobs 2,000; (b) the same twice
+     more, csr_load served once in the three runs, then host ranker and
+     warm card as fresh processes in turns host, card, card, host, and a
+     run without -device_rank that the automatic gate sends to the live
+     server (rank_device_jobs 2,000); (c)
+     phase 7's workload with -sintax_device, a cold load and two warm
+     runs, -tabbedout equal to phase 7's host judge, the server's
+     sintax_pick_hist and sintax_boot_count_select launches grown,
+     sintax_load served once, then host and warm card in turns, and a run
+     without -sintax_device that the automatic gate sends to the live
+     server; (d) phase
+     5's slice with -dev_batch_cells 1, blast6 equal to phase 5's,
+     5,532,965,001 device cells on the server, whose wavefront_fwd and
+     wavefront_trace launches grow by phase 5's counts; (e) shutdown: the
+     server's process gone within 10 s and its socket removed.
+Phases 1-10 run with USEARCH_DEV_SERVER=0 and pass the card to their
+in-process command lines, so that their card work stays in this process,
+where the launch counts are read, or in the processes they start.
 Every kernel's time comes with its bound: the larger of the bytes it
 must move over 3.35 TB/s and its operations over the card's peak for
 their type (float32 67 TFLOP/s; the tensor cores' int8 1,979 TOP/s and
@@ -120,6 +144,7 @@ kernel alone, its outputs allocated beforehand, where this run times it
 (banded_nw_fwd, banded_nw_chase and sintax_pick_hist), else null.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -1038,7 +1063,8 @@ def sintax_chunks(dbf, qf, d):
     sd.TorchBootEngine.run_chunk = grab
     try:
         rc = cli.main(["-sintax", q64, "-db", dbf, "-strand", "both",
-                       "-randseed", "1", "-quiet", "-sintax_device"])
+                       "-randseed", "1", "-quiet", "-sintax_device"],
+                      device="cuda")
     finally:
         sd.TorchBootEngine.run_chunk = orig
     if rc != 0 or len(seen) != 1:
@@ -1226,7 +1252,7 @@ def sintax_run(args, stats=None, profile=False):
                 torch.profiler.ProfilerActivity.CUDA])
             prof.__enter__()
         t0 = time.perf_counter()
-        rc = cli.main(args)
+        rc = cli.main(args, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
@@ -1386,7 +1412,7 @@ def phase_sintax(d, dev, phase_done, other_hist=None):
           f"{stage['classify_window']:.2f} s, run_chunk "
           f"{stage['run_chunk']:.2f} s; {json.dumps(prof)}", flush=True)
     phase_done(7, t_phase)
-    return sx, launches
+    return sx, launches, {"db": dbf, "q": qf, "ref": ref_b}
 
 
 def rank_stages(udb, qf, big_opts, dev):
@@ -1508,19 +1534,21 @@ def phase_rank(d, dev, phase_done):
         # the host's, then the card's, whose launches are counted
         t0 = time.perf_counter()
         rc = cli.main(base + big_opts + ["-no_device_rank", "-blast6out",
-                                         port_host])
+                                         port_host], device=dev)
         t_host_in = time.perf_counter() - t0
         os.environ["USEARCH_DEVICE_STATS"] = stats
         try:
             t0 = time.perf_counter()
             rc |= cli.main(base + big_opts + ["-device_rank", "-blast6out",
-                                              port])
+                                              port], device=dev)
             torch.cuda.synchronize()
             t_card = time.perf_counter() - t0
         finally:
             os.environ.pop("USEARCH_DEVICE_STATS", None)
         with open(ref, "rb") as f:
             ref_b = f.read()
+        if tag == "big":
+            out_ref_big = ref_b
         with open(port, "rb") as f:
             port_b = f.read()
         with open(port_host, "rb") as f:
@@ -1565,6 +1593,7 @@ def phase_rank(d, dev, phase_done):
                   f"{[round(x, 2) for x in gate['-no_device_rank']]} s, card "
                   f"ranker {[round(x, 2) for x in gate['-device_rank']]} s; "
                   f"blast6 equal", flush=True)
+    out["files"] = {"udb": udb, "q": qf, "ref": out_ref_big}
     phase_done(9, t_phase)
     return out
 
@@ -1796,7 +1825,8 @@ def phase_mesh(d, dev, phase_done):
         inc.int8_mm.launches = 0
         try:
             t0 = time.perf_counter()
-            rc = cli.main(base + extra + ["-uc", uc, "-centroids", fa])
+            rc = cli.main(base + extra + ["-uc", uc, "-centroids", fa],
+                          device=dev)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         finally:
@@ -1842,7 +1872,8 @@ def phase_mesh(d, dev, phase_done):
         inc.int8_mm.launches = 0
         try:
             t0 = time.perf_counter()
-            rc = cli.main(ub + big_opts + ["-mesh", "1", "-blast6out", b6])
+            rc = cli.main(ub + big_opts + ["-mesh", "1", "-blast6out", b6],
+                          device=dev)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         finally:
@@ -1905,7 +1936,7 @@ def phase_mesh(d, dev, phase_done):
     t0 = time.perf_counter()
     rc = cli.main(["-usearch_global", q200, "-db", udb, "-id", "0.9",
                    "-strand", "plus", "-quiet", "-mesh", "1", "-blast6out",
-                   os.path.join(d, "x.b6"), "-xprof", xdir])
+                   os.path.join(d, "x.b6"), "-xprof", xdir], device=dev)
     t_x = time.perf_counter() - t0
     traces = os.listdir(xdir) if os.path.isdir(xdir) else []
     n_kernels = 0
@@ -1919,6 +1950,219 @@ def phase_mesh(d, dev, phase_done):
         fail("-xprof wrote no trace with CUDA kernel events")
     phase_done(10, t_phase)
     return out
+
+# a command line of the port as a fresh process in which torch, jax and the
+# JAX package cannot be imported: `python -c BLOCKED_CLI ARGS`
+BLOCKED_CLI = ("import runpy, sys\n"
+               "for m in ('torch', 'jax', 'usearch12_tpu'):\n"
+               "    sys.modules[m] = None\n"
+               "sys.argv[0] = 'usearch12_tpu_torch.cli'\n"
+               "runpy.run_module('usearch12_tpu_torch.cli', "
+               "run_name='__main__')\n")
+
+
+@contextlib.contextmanager
+def phase_dir(work, name):
+    """Directory `name` of the run's work directory, kept after the phase
+    (phase 11 reads the files of phases 5, 7 and 9)."""
+    d = os.path.join(work, name)
+    os.makedirs(d)
+    yield d
+
+
+def phase_server(d, slice_files, sintax_files, rank_files, phase_done):
+    """Phase 11 in directory d: the resident device server
+    (usearch12_tpu_torch/device_server.py) driven by fresh processes of the
+    port's command line with torch, jax and usearch12_tpu blocked, the
+    server's socket under d (TMPDIR): (a) the ranking workload with
+    -device_rank spawns it; (b) the same twice more, warm, then host and
+    warm card in turns; (c) the SINTAX workload with -sintax_device, a cold
+    load and two warm runs, then host and warm card in turns; (b) and (c)
+    end with a run without the flag, which the automatic gate sends to the
+    live server; (d) the slice with -dev_batch_cells 1; (e) shutdown.  Each output is held against
+    its phase's host judge, the server's counters against the work each
+    run sent it."""
+    from usearch12_tpu_torch import device_server as dsrv
+    t_phase = time.perf_counter()
+    tmp = os.path.join(d, "tmp")
+    os.makedirs(tmp)
+    paths = dsrv.server_paths(tmp)
+    env = dict(os.environ, TMPDIR=tmp, PYTHONPATH=HERE)
+    env.pop("USEARCH_DEV_SERVER")
+    host_env = dict(env, USEARCH_DEV_SERVER="0")
+    srv = dsrv.DeviceServerClient(paths)
+    stats = os.path.join(d, "stats.jsonl")
+
+    def op_seconds():
+        """Seconds of the server's work by op, from its log's lines
+        "device_server: OP SECONDS s"."""
+        secs = {}
+        if os.path.exists(paths.log):
+            with open(paths.log) as f:
+                for line in f:
+                    w = line.split()
+                    if len(w) == 4 and w[0] == "device_server:" \
+                            and w[3] == "s" and w[1] in dsrv.OPS:
+                        secs[w[1]] = secs.get(w[1], 0.0) + float(w[2])
+        return secs
+
+    def work_since(before):
+        now = op_seconds()
+        return {k: round(v - before.get(k, 0.0), 3) for k, v in now.items()
+                if v > before.get(k, 0.0)}
+
+    def client(tag, args, out, ref, run_env=env):
+        """Wall seconds of one client process; its output must equal
+        `ref`; returns (seconds, its USEARCH_DEVICE_STATS record)."""
+        if os.path.exists(stats):
+            os.unlink(stats)
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", BLOCKED_CLI] + args, cwd=d,
+                           env=dict(run_env, USEARCH_DEVICE_STATS=stats),
+                           capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if r.returncode != 0:
+            fail(f"server {tag}: the client exited {r.returncode}: "
+                 f"{r.stderr[-3000:]}")
+        if r.stderr.strip():
+            fail(f"server {tag}: the client wrote to stderr: "
+                 f"{r.stderr[-2000:]}")
+        with open(out, "rb") as f:
+            if f.read() != ref or not ref:
+                fail(f"server {tag}: the output differs from the host judge")
+        rec = None
+        if os.path.exists(stats):
+            with open(stats) as f:
+                rec = json.loads(f.read().splitlines()[-1])
+        return wall, rec
+
+    def turns(tag, args, host_flag, card_flag, out, ref):
+        """Host and warm card as fresh processes, in the turns host, card,
+        card, host."""
+        secs = {"host": [], "card": []}
+        for side in ("host", "card", "card", "host"):
+            extra, e = ((host_flag, host_env) if side == "host"
+                        else (card_flag, env))
+            secs[side].append(client(f"{tag} {side}", args + [extra], out,
+                                     ref, e)[0])
+        print(f"server {tag} turns host, card, card, host: host "
+              f"{secs['host'][0]:.2f}, {secs['host'][1]:.2f} s; warm card "
+              f"{secs['card'][0]:.2f}, {secs['card'][1]:.2f} s; the card "
+              f"{'won every turn' if max(secs['card']) < min(secs['host']) else 'did not win every turn'}",
+              flush=True)
+        return secs
+
+    try:
+        # (a) the cold spawn: the ranking workload with -device_rank
+        rank_out = os.path.join(d, "rank.b6")
+        rank_args = ["-usearch_global", rank_files["q"], "-db",
+                     rank_files["udb"], "-id", "0.9", "-strand", "plus",
+                     "-quiet", "-blast6out", rank_out]
+        t_cold, rec = client("rank cold", rank_args + ["-device_rank"],
+                             rank_out, rank_files["ref"])
+        w_cold = work_since({})
+        rep = srv.ping()
+        start = ", ".join(f"{k} {v:.2f}" for k, v in rep["start"].items())
+        print(f"server (a) cold: usearch_global -device_rank, 220,000 "
+              f"targets x 2,000 queries, the client {t_cold:.2f} s with the "
+              f"server's spawn (pid {rep['pid']}, {rep['device']}; its "
+              f"start: {start} s); rank_device_jobs "
+              f"{rec['rank_device_jobs']}, server {rec['server']}; the "
+              f"server's work {w_cold} s; blast6 equal to phase 9's host "
+              f"ranker", flush=True)
+        if rec["rank_device_jobs"] != 2000 or not rec["server"]:
+            fail(f"server (a): {rec}")
+        # (b) warm ranking
+        w0 = op_seconds()
+        warm = [client("rank warm", rank_args + ["-device_rank"], rank_out,
+                       rank_files["ref"])[0] for _ in range(2)]
+        rep = srv.ping()
+        print(f"server (b) warm: {warm[0]:.2f}, {warm[1]:.2f} s; the "
+              f"server's work in both {work_since(w0)} s; served "
+              f"{rep['served']}", flush=True)
+        if rep["served"]["csr_load"] != 1:
+            fail(f"server (b): csr_load served {rep['served']['csr_load']} "
+                 "times in three runs, not once")
+        turns("(b) rank", rank_args, "-no_device_rank", "-device_rank",
+              rank_out, rank_files["ref"])
+        # the automatic gate (AUTO_MIN_RANK_TARGETS) takes the live server
+        t_auto, rec = client("rank auto", rank_args, rank_out,
+                             rank_files["ref"])
+        print(f"server (b) the automatic gate, no flag: {t_auto:.2f} s; "
+              f"rank_device_jobs {rec['rank_device_jobs']}, server "
+              f"{rec['server']}", flush=True)
+        if rec["rank_device_jobs"] != 2000 or not rec["server"]:
+            fail(f"server (b): the automatic gate did not take the live "
+                 f"server: {rec}")
+        # (c) SINTAX
+        sx_out = os.path.join(d, "sx.tab")
+        sx_args = ["-sintax", sintax_files["q"], "-db", sintax_files["db"],
+                   "-strand", "both", "-randseed", "1", "-quiet",
+                   "-tabbedout", sx_out]
+        n0 = srv.ping()
+        sx, w_sx = [], []
+        for _ in range(3):
+            w0 = op_seconds()
+            sx.append(client("sintax", sx_args + ["-sintax_device"], sx_out,
+                             sintax_files["ref"])[0])
+            w_sx.append(work_since(w0))
+        n1 = srv.ping()
+        grew = {k: n1["launches"][k] - n0["launches"][k]
+                for k in ("sintax_pick_hist", "sintax_boot_count_select")}
+        print(f"server (c) sintax -sintax_device, 60,000 targets x 1,500 "
+              f"queries: cold load {sx[0]:.2f} s, warm {sx[1]:.2f}, "
+              f"{sx[2]:.2f} s; the server's work {w_sx} s; its launches "
+              f"{grew}, sintax_load "
+              f"served {n1['served']['sintax_load']}; tabbedout equal to "
+              f"phase 7's host path", flush=True)
+        if min(grew.values()) <= 0 or n1["served"]["sintax_load"] != 1:
+            fail(f"server (c): launches {grew}, served {n1['served']}")
+        turns("(c) sintax", sx_args, "-no_sintax_device", "-sintax_device",
+              sx_out, sintax_files["ref"])
+        # the automatic gate (AUTO_MIN_SERVER_TARGETS) takes the live server
+        n0 = srv.ping()["served"]["sintax_boots"]
+        t_auto, rec = client("sintax auto", sx_args, sx_out,
+                             sintax_files["ref"])
+        n1 = srv.ping()["served"]["sintax_boots"]
+        print(f"server (c) the automatic gate, no flag: {t_auto:.2f} s; "
+              f"{rec}, sintax_boots served {n1 - n0}", flush=True)
+        if not rec["device"] or n1 <= n0:
+            fail(f"server (c): the automatic gate did not take the live "
+                 f"server: {rec}")
+        # (d) the slice
+        sl_out = os.path.join(d, "slice.b6")
+        n0 = srv.ping()
+        w0 = op_seconds()
+        t_sl, rec = client("slice", ["-usearch_global", slice_files["q"],
+                                     "-db", slice_files["t"]] + COMMON
+                           + ["-dev_batch_cells", "1", "-blast6out",
+                              sl_out], sl_out, slice_files["ref"])
+        n1 = srv.ping()
+        grew = {k: n1["launches"][k] - n0["launches"][k]
+                for k in ("wavefront_fwd", "wavefront_trace")}
+        print(f"server (d) slice: {t_sl:.2f} s, the server's work "
+              f"{work_since(w0)} s; device_cells "
+              f"{rec['device_cells']}, server {rec['server']}; the server's "
+              f"launches {grew} (phase 5 in process: "
+              f"{slice_files['launches']}); blast6 equal to phase 5's",
+              flush=True)
+        if rec["device_cells"] != 5532965001 or not rec["server"]:
+            fail(f"server (d): {rec}")
+        if grew != slice_files["launches"]:
+            fail(f"server (d): launches {grew}, phase 5's "
+                 f"{slice_files['launches']}")
+    finally:
+        # (e) shutdown
+        pid = dsrv.shutdown_server(paths)
+    gone = pid is not None and not dsrv._pid_alive(pid)
+    print(f"server (e) shutdown: pid {pid} {'gone' if gone else 'ALIVE'}, "
+          f"socket {'removed' if not os.path.exists(paths.sock) else 'LEFT'}"
+          f"; phase {time.perf_counter() - t_phase:.1f} s (budget 300 s)",
+          flush=True)
+    if not gone or os.path.exists(paths.sock):
+        fail("server (e): the server did not end within 10 s, or left its "
+             "socket")
+    phase_done(11, t_phase)
 
 
 def main():
@@ -1943,6 +2187,12 @@ def main():
     from usearch12_tpu_torch.ops import wavefront_trace as wtr
 
     t_start = time.perf_counter()
+    # phases 1-10 run the card's work in this process (their command lines
+    # pass the card) and in processes of their own, never on a resident
+    # server; phase 11 drives the server
+    os.environ["USEARCH_DEV_SERVER"] = "0"
+    work_dir = tempfile.TemporaryDirectory()
+    work = work_dir.name
 
     def phase_done(n, t0):
         print(f"phase {n}: {time.perf_counter() - t0:.1f} s (run "
@@ -2039,7 +2289,7 @@ def main():
     # 5. the slice: usearch_global on the long-contig workload, on the
     # card against the port's host C path
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory() as d:
+    with phase_dir(work, "slice") as d:
         qf, tf = os.path.join(d, "lq.fa"), os.path.join(d, "lt.fa")
         gen_longseq(qf, tf)
         ref_b6, port_b6 = os.path.join(d, "ref.b6"), os.path.join(d,
@@ -2067,7 +2317,7 @@ def main():
         os.environ["USEARCH_DEVICE_STATS"] = auto_stats
         try:
             t0 = time.perf_counter()
-            rc = cli.main(args + ["-blast6out", auto_b6])
+            rc = cli.main(args + ["-blast6out", auto_b6], device=dev)
             torch.cuda.synchronize()
             t_auto = time.perf_counter() - t0
         finally:
@@ -2109,7 +2359,7 @@ def main():
         try:
             t0 = time.perf_counter()
             rc = cli.main(args + ["-dev_batch_cells", "1", "-blast6out",
-                                  port_b6])
+                                  port_b6], device=dev)
             torch.cuda.synchronize()
             t_port = time.perf_counter() - t0
         finally:
@@ -2138,6 +2388,7 @@ def main():
             fail(f"device_cells {ds['device_cells']}, not 5,532,965,001")
         if min(launches.values()) <= 0:
             fail(f"a kernel was not launched on the main path: {launches}")
+    slice_files = {"q": qf, "t": tf, "ref": ref, "launches": launches}
     time_slice_launches(seen, other)
     if other is not None:
         compare_fwd("slice launches", seen, other["fwd"])
@@ -2146,8 +2397,8 @@ def main():
     torch.cuda.empty_cache()
     phase_done(5, t_phase)
 
-    with tempfile.TemporaryDirectory() as d:
-        sx, sx_launches = phase_sintax(
+    with phase_dir(work, "sintax") as d:
+        sx, sx_launches, sintax_files = phase_sintax(
             d, dev, phase_done, None if other is None else other["hist"])
 
     # 8. the cost model's cold-start constants on this card
@@ -2156,10 +2407,16 @@ def main():
     phase_done(8, t_phase)
 
     # 9. usearch_global's ranking on the card
-    with tempfile.TemporaryDirectory() as d:
-        phase_rank(d, dev, phase_done)
+    with phase_dir(work, "rank") as d:
+        rank_files = phase_rank(d, dev, phase_done)["files"]
         # 10. the mesh paths, on phase 9's files
         phase_mesh(d, dev, phase_done)
+
+    # 11. the resident device server, on the files of phases 5, 7 and 9
+    torch.cuda.empty_cache()
+    with phase_dir(work, "server") as d:
+        phase_server(d, slice_files, sintax_files, rank_files, phase_done)
+    work_dir.cleanup()
 
     def row(name, source, replaces, n, err, ms, plain_ms, bnd,
             library_ms=None, kernel_ms=None):

@@ -281,8 +281,8 @@ def test_over_cap_cli_counts_host_reranks(ranked_db, tmp_path, monkeypatch):
 def test_auto_gate(ranked_db, tmp_path, monkeypatch, flag, gate, engaged):
     """With AUTO_MIN_RANK_TARGETS at or below the DB's 80 targets, the
     ranker engages when the engine has a device, and not under
-    -no_device_rank or -no_engine_device; with the gate off (None, the
-    default) only -device_rank takes it.  The bytes stay the host's."""
+    -no_device_rank or -no_engine_device; with the gate off (None) only
+    -device_rank takes it.  The bytes stay the host's."""
     db_fa, q_fa = ranked_db
     args = ["-usearch_global", q_fa, "-db", db_fa, "-id", "0.9", "-strand",
             "plus", "-quiet"]
@@ -290,7 +290,7 @@ def test_auto_gate(ranked_db, tmp_path, monkeypatch, flag, gate, engaged):
     host = _search(port, tmp_path / "host", args + ["-no_device_rank",
                                                     "-no_engine_device"],
                    ["blast6out"], monkeypatch=monkeypatch)
-    assert port_commands.AUTO_MIN_RANK_TARGETS is None
+    assert port_commands.AUTO_MIN_RANK_TARGETS == 220000
     monkeypatch.setattr(port_commands, "AUTO_MIN_RANK_TARGETS", gate)
     stats = tmp_path / "stats.jsonl"
     got = _search(port, tmp_path / "auto", args + ([flag] if flag else []),

@@ -5,11 +5,19 @@ present.  Run them on a machine with one:
     python -m pytest tests/test_torch_cuda.py -m cuda
 """
 
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
 import numpy as np
 import pytest
 import torch
 
 from usearch12_tpu.align.oracle import banded_nw_main_diag
+from usearch12_tpu_torch import device_server as ds
 from usearch12_tpu_torch.ops import wavefront_nw as wnw
 from usearch12_tpu_torch.ops import wavefront_trace as wtr
 
@@ -546,3 +554,113 @@ def test_mesh_ranker_on_card_matches_cpu(card, tmp_path, n_db, extra):
     for x, y in zip(got, want):
         assert x.dtype == y.dtype and np.array_equal(x, y)
     assert got[2].min() > 0
+
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def start_server(tmp, device="cpu", idle=60.0):
+    """A server of this checkout on `device`, its socket under `tmp` (as
+    a client with TMPDIR=tmp finds it), answering: (process, client)."""
+    env = dict(os.environ, TMPDIR=tmp, PYTHONPATH=ROOT)
+    log = open(os.path.join(tmp, "server.out"), "ab")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "usearch12_tpu_torch.device_server",
+         "--device", device, "--idle", str(idle)], env=env, stdout=log,
+        stderr=log, cwd=ROOT)
+    log.close()
+    cli = ds.DeviceServerClient(ds.server_paths(tmp), timeout=600.0)
+    deadline = time.monotonic() + 600
+    while True:
+        try:
+            cli.ping()
+            return proc, cli
+        except ds.DeviceServerError:
+            if proc.poll() is not None or time.monotonic() > deadline:
+                proc.kill()
+                with open(os.path.join(tmp, "server.out")) as f:
+                    raise RuntimeError("server did not start: " + f.read())
+            time.sleep(0.1)
+
+
+def stop_server(proc, cli):
+    try:
+        cli.shutdown()
+    except ds.DeviceServerError:
+        pass
+    try:
+        proc.wait(timeout=20)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+
+
+@pytest.fixture(scope="module")
+def card_server():
+    """A resident device server of this checkout on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    d = tempfile.mkdtemp(prefix="u12t-", dir="/tmp")
+    proc, cli = start_server(d, device="cuda")
+    try:
+        yield cli
+    finally:
+        stop_server(proc, cli)
+        shutil.rmtree(d, ignore_errors=True)
+
+
+@pytest.mark.parametrize("radius", [16, 120])
+def test_server_align_equals_in_process(card, card_server, radius):
+    """align on the server (op align, one launch of each hole DP kernel a
+    class) is bit-equal to TorchWaveAligner in this process, for two
+    terminal-penalty classes."""
+    ap = wnw.nucleo_params(-10.3, -1.1, -0.7, -0.4)
+    pairs = _pairs(radius, 200, 50, 1200)
+    for cls in (0, 5):
+        n0 = card_server.ping()["launches"]
+        s_srv, p_srv = ds.ServerClassAligner(card_server, ap, cls).align(
+            pairs, radius)
+        n1 = card_server.ping()["launches"]
+        s_in, p_in = wnw.TorchWaveAligner(ap.hole_params(
+            *(bool(cls & b) for b in (1, 2, 4, 8))), card).align(pairs,
+                                                                 radius)
+        assert np.array_equal(s_srv.view(np.int32), s_in.view(np.int32))
+        assert p_srv == p_in
+        assert n1["wavefront_fwd"] > n0["wavefront_fwd"]
+        assert n1["wavefront_trace"] > n0["wavefront_trace"]
+    assert card_server.ping()["device"] == "cuda:0"
+
+
+@pytest.mark.parametrize("m_val,mmax", [(32, 32), (200, 256), (3000, 4096)])
+def test_server_sintax_boots_equal_in_process(card, card_server, m_val,
+                                              mmax):
+    """sintax_boots on the server's engine (sintax_load once) is
+    bit-equal to TorchBootEngine.run_chunk in this process; m > 2048
+    included."""
+    from usearch12_tpu_torch.amplicon.sintax_device import TorchBootEngine
+    rng = np.random.default_rng(m_val)
+    cq, boots, uwmax, v, t = 16, 20, 32, 256, 700
+    sizes = rng.integers(0, 6, v)
+    posts = np.concatenate([rng.choice(t, int(s), replace=False)
+                            for s in sizes]).astype(np.int32)
+    nuw = rng.integers(8, uwmax + 1, cq).astype(np.int32)
+    words = np.zeros((cq, uwmax), np.int32)
+    for k in range(cq):
+        words[k, :nuw[k]] = rng.choice(v, nuw[k], replace=False)
+    m = np.full(cq, m_val, np.int32)
+    stream = rng.integers(0, 2 ** 32, boots * mmax,
+                          dtype=np.uint64).astype(np.uint32)
+    rr = rng.integers(0, 2 ** 32, (cq, boots),
+                      dtype=np.uint64).astype(np.uint32)
+    db = (v, t, sizes, posts, boots)
+    chunk = (words, nuw, m, stream, rr)
+    n0 = card_server.ping()
+    got = card_server.sintax_boots(
+        ("card", m_val), *chunk,
+        lambda: dict(zip(("v", "t", "sizes", "postings", "boots"), db)))
+    n1 = card_server.ping()
+    want = TorchBootEngine(*db, card).run_chunk(*chunk)
+    assert all(np.array_equal(x, y) for x, y in zip(got, want))
+    assert n1["served"]["sintax_load"] == n0["served"]["sintax_load"] + 1
+    for k in ("sintax_pick_hist", "sintax_boot_count_select"):
+        assert n1["launches"][k] > n0["launches"][k], k

@@ -10,12 +10,16 @@ Per-rank confidence = cumulative-product bootstrap fraction.
 SintaxClassifier is the host path (C per window, numpy per query).  The
 boots run on the card (amplicon/sintax_device.py:SintaxTorchClassifier)
 when -sintax_device asks for it, or, unless -no_sintax_device is given,
-when the DB has at least AUTO_MIN_TARGETS targets.  Either way nothing
-falls back: a build, launch or memory error on the card raises.  Runs
-that the device path cannot take (ineligible(): -self, a hashed index, an
-incidence over MAX_INCIDENCE_BYTES) run on the host whatever the flags
-say, and the reason goes into the USEARCH_DEVICE_STATS record.  torch is
-imported only when the card is chosen.
+when the DB has at least AUTO_MIN_TARGETS targets (AUTO_MIN_SERVER_TARGETS
+when a resident server answers and the caller passed no device).  With no
+device passed the boots go to the resident server (device_server.py),
+else, saying why on stderr, to the card in this process
+(commands.py:_engine_device).  Either way nothing falls back: a build,
+launch or memory error on the card, or a failure of the server, raises.
+Runs that the device path cannot take (ineligible(): -self, a hashed
+index, an incidence over MAX_INCIDENCE_BYTES) run on the host whatever
+the flags say, and the reason goes into the USEARCH_DEVICE_STATS record.
+torch is imported only when the card is chosen in this process.
 """
 
 from __future__ import annotations
@@ -364,6 +368,13 @@ class SintaxClassifier:
 # torch's import and the CUDA start (about 8 s on that machine); the
 # classification itself is about 11x faster on the card at 60,000.
 AUTO_MIN_TARGETS = 64000
+# The same gate when a resident server (device_server.py) answers and the
+# caller passed no device: the run then pays neither of those costs.  On
+# the same card and workload at 60,000 targets a command run through a
+# warm server beat the host path in every turn (7.54-7.74 s against
+# 16.60-17.15 s; chip_smoke.py's phase 11, PERF.md).  Smaller DBs were not
+# measured.
+AUTO_MIN_SERVER_TARGETS = 60000
 WINDOW = 512
 # largest dense (V, T) int8 incidence the card path takes; the JAX
 # package's TPU limit, not yet measured on the card
@@ -389,8 +400,11 @@ def ineligible(sc: SintaxClassifier) -> Optional[str]:
     return None
 
 
-def choose_device(cls: SintaxClassifier) -> Tuple[bool, str]:
-    """(run the boots on the card, why)."""
+def choose_device(cls: SintaxClassifier,
+                  device: DeviceLike = None) -> Tuple[bool, str]:
+    """(run the boots on the card, why).  With no `device` passed, a live
+    resident server lowers the automatic gate to AUTO_MIN_SERVER_TARGETS
+    (it is asked with a ping, before anything imports torch)."""
     o = options()
     forced, refused = o.flag("sintax_device"), o.flag("no_sintax_device")
     why = ineligible(cls)
@@ -403,6 +417,12 @@ def choose_device(cls: SintaxClassifier) -> Tuple[bool, str]:
     n = cls.index.seq_count
     if n >= AUTO_MIN_TARGETS:
         return True, f"auto: {n} >= {AUTO_MIN_TARGETS} targets"
+    if (device is None and AUTO_MIN_SERVER_TARGETS is not None
+            and n >= AUTO_MIN_SERVER_TARGETS):
+        from ..device_server import get_client
+        if get_client(spawn=False) is not None:
+            return True, (f"auto: {n} >= {AUTO_MIN_SERVER_TARGETS} targets "
+                          "and a live device server")
     return False, f"auto: {n} < {AUTO_MIN_TARGETS} targets"
 
 
@@ -440,12 +460,12 @@ def sintax(query_path: Optional[str], device: DeviceLike = None) -> None:
         both = False   # amino DB: single plus-strand classify
     cls = SintaxClassifier(db, index, GlobalRand(o.uns("randseed")))
     cutoff = o.flt("sintax_cutoff")
-    on_card, reason = choose_device(cls)
+    on_card, reason = choose_device(cls, device)
     dev_cls = None
     if on_card:
-        from ..device import resolve_device
+        from ..commands import _engine_device
         from .sintax_device import SintaxTorchClassifier
-        dev_cls = SintaxTorchClassifier(cls, resolve_device(device))
+        dev_cls = SintaxTorchClassifier(cls, _engine_device(device))
 
     f = open(o.str("tabbedout"), "w") if o.filled("tabbedout") else None
     try:

@@ -20,19 +20,21 @@ numbers replayed exactly (src/sintaxsearcher.cpp:77-122, 151-187):
    (r % ties)-th tie.
 
 classify_window therefore equals SintaxClassifier.classify_window tuple
-for tuple.
+for tuple.  The chunks run in this process (TorchBootEngine) or on the
+resident server (ServerBootEngine, device_server.py), which keeps the
+incidence of a DB across command runs; only the former imports torch.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import TYPE_CHECKING, List
 
 import numpy as np
-import torch
 
-from ..device import DeviceLike
-from ..ops.sintax_boot import boot_step
 from .sintax import SintaxClassifier, _next_rand, ineligible
+
+if TYPE_CHECKING:
+    from ..device import DeviceLike
 
 
 class TorchBootEngine:
@@ -45,10 +47,11 @@ class TorchBootEngine:
 
     def __init__(self, v: int, t: int, sizes: np.ndarray,
                  postings: np.ndarray, boots: int,
-                 device: torch.device) -> None:
+                 device: DeviceLike) -> None:
+        import torch
         self.t = t
         self.B = boots
-        self.device = device
+        self.device = device = torch.device(device)
         nnz = int(sizes.sum())
         # rows of a multiple of 16 bytes, as the card's boot-count kernel
         # copies them; w_mat is the (v, t) view
@@ -69,6 +72,10 @@ class TorchBootEngine:
     def run_chunk(self, words, nuw, m, stream, rr):
         """(cq, uwmax) words -> (winners, tops) numpy (cq, B) int32.
         stream and rr are uint32 numpy arrays."""
+        import torch
+
+        from ..ops.sintax_boot import boot_step
+
         def up(x):
             return torch.from_numpy(
                 np.ascontiguousarray(x).view(np.int32)).to(self.device)
@@ -81,9 +88,26 @@ class TorchBootEngine:
         return winner.cpu().numpy(), top.cpu().numpy()
 
 
+class ServerBootEngine:
+    """TorchBootEngine's run_chunk on the resident server, on the
+    incidence it keeps for the DB signature `sig`, which it builds from
+    loader()'s fields (sintax_load) when it does not hold it.  A failure
+    of the server raises."""
+
+    def __init__(self, client, sig, loader) -> None:
+        self.client = client
+        self.sig = sig
+        self.loader = loader
+
+    def run_chunk(self, words, nuw, m, stream, rr):
+        return self.client.sintax_boots(self.sig, words, nuw, m, stream, rr,
+                                        self.loader)
+
+
 class SintaxTorchClassifier:
-    """classify_window with the boots on `device` (the CPU runs the
-    kernels' plain versions)."""
+    """classify_window with the boots on `device`: a torch device (the
+    CPU runs the kernels' plain versions) or the resident server's
+    ServerDevice."""
 
     def __init__(self, cls: SintaxClassifier, device: DeviceLike,
                  chunk_q: int = 128) -> None:
@@ -94,10 +118,17 @@ class SintaxTorchClassifier:
         self.t = self.index.seq_count
         self._stream = None
         self._stream_len = 0
-        self._engine = TorchBootEngine(
-            self.index.params.slot_count, self.t,
-            np.asarray(self.index.sizes), np.asarray(self.index.postings),
-            int(cls.boots), torch.device(device))
+        db = (self.index.params.slot_count, self.t,
+              np.asarray(self.index.sizes), np.asarray(self.index.postings),
+              int(cls.boots))
+        if getattr(device, "is_server", False):
+            from ..device_server import db_signature
+            self._engine = ServerBootEngine(
+                device.client, db_signature(self.index, "sintax", db[4]),
+                lambda: dict(zip(("v", "t", "sizes", "postings", "boots"),
+                                 db)))
+        else:
+            self._engine = TorchBootEngine(*db, device)
 
     @classmethod
     def usable(cls, sc: SintaxClassifier) -> bool:

@@ -15,8 +15,14 @@ Every command writes the bytes that the JAX package's CLI writes, with
 every option of that CLI: -mesh DATAxDB (usearch_global, cluster_mt) runs
 on a mesh of cards, or of CPU entries when the caller passes the CPU, and
 -xprof DIR writes a torch.profiler Chrome trace of the command into DIR.
-torch is imported only by the paths that run on the card and by -xprof,
-so a host command starts as fast as in the JAX package.
+torch is imported only by the paths that run on the card in this process
+and by -xprof, so a host command starts as fast as in the JAX package.
+When the caller passes no device, usearch_global's and sintax's card work
+goes to the resident device server (device_server.py: started by the
+first run that needs it, or by `python -m usearch12_tpu_torch.device_server
+--device cuda`), and this process imports no torch at all; where no
+server can be reached or started, the work runs on the card in this
+process, after a line on stderr that says why.
 """
 
 from __future__ import annotations

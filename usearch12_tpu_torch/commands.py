@@ -6,11 +6,15 @@ its holes on the card (engine/batch.py) and may rank there
 (ops/csr_rank.py, or over a -mesh: parallel/mesh_search.py), sintax may
 run its boots there (amplicon/sintax.py), and cluster_mt -mesh counts its
 words there (parallel/cluster_batch.py); every other command runs on the
-host.  torch is imported only when a command runs on the card.
+host.  The card's work of usearch_global and sintax goes, unless the
+caller passed a device, to the resident server (device_server.py), so
+that the command's process imports no torch (_engine_device); torch is
+imported only when a command runs on the card in its own process.
 """
 
 from __future__ import annotations
 
+import sys
 from typing import TYPE_CHECKING, Optional
 
 from .config import options
@@ -81,36 +85,73 @@ def _mesh(device: DeviceLike):
     return make_mesh(o.str("mesh"), device)
 
 
-# the DB size from which usearch_global would rank on the engine's device
-# without -device_rank (the JAX package's gate is 200,000 targets); None:
-# never.  On an H100 the card ranked 220,000 targets more slowly than the
-# host as a fresh process (chip_smoke.py's phase 9, PERF.md), so only an
-# explicit -device_rank takes it
-AUTO_MIN_RANK_TARGETS = None
+def _engine_device(device: DeviceLike = None):
+    """The device of a command's card work: `device` in this process when
+    the caller passed one; else the resident server (device_server.py),
+    live or spawned, so that this process imports no torch; else the card
+    in this process (resolve_device, which raises where there is none),
+    after one line on stderr saying why the server is not used.  -xprof
+    traces this process, so its work stays here."""
+    from .device import resolve_device
+    if device is not None:
+        return resolve_device(device)
+    if options().filled("xprof"):
+        why = "-xprof traces this process"
+    else:
+        from .device_server import ServerDevice, connect
+        client, why = connect(spawn=True)
+        if client is not None:
+            return ServerDevice(client)
+    print(f"usearch12_tpu_torch: not using the device server ({why}); "
+          "the card's work runs in this process", file=sys.stderr)
+    return resolve_device(None)
 
 
-def _device_rank(eng, dev) -> bool:
+# the DB size from which usearch_global ranks on the card without
+# -device_rank (the JAX package's gate is 200,000 targets): in this process
+# when the caller passed a device, else on a live resident server, never
+# in a fresh process of its own.  On an H100 (700 W) with 220,000 targets
+# and 2,000 queries of 250 nt, a command run through a warm server beat
+# the host ranker in every turn (2.10-2.27 s against 2.65-2.86 s), and one
+# that imported torch for it lost (11.06-12.98 s against 2.00-2.26 s);
+# chip_smoke.py's phases 9 and 11, PERF.md.  Smaller DBs were not measured
+AUTO_MIN_RANK_TARGETS = 220000
+
+
+def _device_rank(eng) -> bool:
     """Whether usearch_global's ranking runs on the card
     (ops/csr_rank.py): asked with -device_rank, or, unless
-    -no_device_rank, when the engine has a device and the DB has at least
-    AUTO_MIN_RANK_TARGETS targets (where that is set); never for a hashed
-    index."""
+    -no_device_rank, when the DB has at least AUTO_MIN_RANK_TARGETS targets
+    (where that is set) and the engine has a device: the caller's, or,
+    through the factory, a live resident server (asked before anything
+    imports torch; none is spawned for it); never for a hashed index."""
     o = options()
     forced, refused = o.flag("device_rank"), o.flag("no_device_rank")
     if refused or eng.index.params.hashed:
         return False
-    return forced or (dev is not None and AUTO_MIN_RANK_TARGETS is not None
-                      and eng.index.seq_count >= AUTO_MIN_RANK_TARGETS)
+    if forced:
+        return True
+    if (AUTO_MIN_RANK_TARGETS is None
+            or eng.index.seq_count < AUTO_MIN_RANK_TARGETS):
+        return False
+    if eng.device is not None:
+        return True
+    if eng._device_factory is None:
+        return False
+    from .device_server import get_client
+    return get_client(spawn=False) is not None
 
 
 def cmd_usearch_global(query_path: Optional[str],
                        device: DeviceLike = None) -> None:
     """usearch_global: UDB global search with USORT ranking
     (src/searchcmd.cpp:6-50, src/search.cpp:89-141): the batch engine,
-    with the hole DP on `device` unless -no_engine_device and the ranking
-    there where _device_rank says, where it takes the run, else the serial
-    driver.  With -mesh the engine ranks over the mesh's devices and
-    aligns on the host (parallel/mesh_search.py)."""
+    with the hole DP on the card unless -no_engine_device (on `device`, or
+    through _engine_device when the first window wants it) and the
+    ranking there where _device_rank says, where it takes the run, else
+    the serial driver.  With -mesh the engine ranks over the mesh's
+    devices and aligns on the host (parallel/mesh_search.py), in this
+    process."""
     o = options()
     if query_path is None:
         query_path = o.str("query")
@@ -190,21 +231,31 @@ def cmd_usearch_global(query_path: Optional[str],
                              fast_emit=fast_emit, index=db_index)
         elif eligible and not o.flag("use_serial_driver"):
             from .engine import BatchEngine
-            dev = None
-            if not o.flag("no_engine_device"):
+            dev = factory = None
+            if o.flag("no_engine_device"):
+                pass
+            elif device is not None:
                 from .device import resolve_device
                 dev = resolve_device(device)
+            else:
+                factory = _engine_device
             eng = BatchEngine("usearch_global", db, index=db_index,
-                              device=dev)
+                              device=dev, device_factory=factory)
             rank_override = None
-            if _device_rank(eng, dev):
-                from .device import resolve_device
-                from .ops.csr_rank import (CSRDeviceRanker,
-                                           make_engine_override)
-                ranker = CSRDeviceRanker(
-                    eng.index, dev if dev is not None
-                    else resolve_device(device),
-                    topk=max(64, eng.max_accepts + eng.max_rejects))
+            if _device_rank(eng):
+                from .ops.csr_host import CSRServerRanker, make_engine_override
+                rank_dev = eng.ensure_device()
+                if rank_dev is None:
+                    rank_dev = _engine_device(device)
+                topk = max(64, eng.max_accepts + eng.max_rejects)
+                if getattr(rank_dev, "is_server", False):
+                    from .device_server import db_signature
+                    ranker = CSRServerRanker(
+                        eng.index, rank_dev.client,
+                        db_signature(eng.index, "csr"), topk=topk)
+                else:
+                    from .ops.csr_rank import CSRDeviceRanker
+                    ranker = CSRDeviceRanker(eng.index, rank_dev, topk=topk)
                 rank_override = make_engine_override(ranker, eng)
             if only_b6:
                 from .engine.emit import Blast6Emitter

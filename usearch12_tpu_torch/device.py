@@ -3,22 +3,26 @@
 The port runs on a CUDA card.  resolve_device() defaults to it and
 raises when there is none: the CPU is used only when a caller passes
 torch.device("cpu") (or "cpu") explicitly, and then every kernel
-wrapper runs its plain PyTorch version.
+wrapper runs its plain PyTorch version.  torch is imported by
+resolve_device(), not by this module, so that a process whose device
+work goes to the resident server (device_server.py) never loads it.
 """
 
 from __future__ import annotations
 
 import subprocess
-from typing import Optional, Union
+from typing import TYPE_CHECKING, Optional, Union
 
-import torch
+if TYPE_CHECKING:
+    import torch
 
-DeviceLike = Union[str, torch.device, None]
+DeviceLike = Union[str, "torch.device", None]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """torch.device for `device` (default "cuda"); raises when a CUDA
     device is asked for and no card is present."""
+    import torch
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

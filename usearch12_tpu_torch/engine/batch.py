@@ -19,12 +19,17 @@ Outputs are bit-identical to the serial driver (search/driver.py); the
 parity suite runs both.  Reference semantics: src/search.cpp:89-141,
 src/udbusortedsearcher.cpp:122-152, src/globalalignmem.cpp:129-236.
 
-The device is a torch.device passed to the constructor and is never
-dropped: a build, launch or memory error on it raises.  Without one
-(-no_engine_device) every hole runs in the host C kernel.  Holes whose
-band is wider than BW_DEV_MAX, and batches the dispatch gate keeps on
-the host, run in the host C kernel too, and the cells of each are
-counted in dev_stats.  torch is imported only when a device is given.
+The device is a torch.device passed to the constructor, or the one that
+its device_factory returns (a torch.device or the resident server's
+ServerDevice, device_server.py) when a window first wants it: the
+factory runs only then, or, for a file holding a sequence of 2,000 nt or
+more, in a warm-up thread started with the run.  The device is never
+dropped: a build, launch or memory error on it, or a failure of the
+server or of the factory, raises.  Without either (-no_engine_device)
+every hole runs in the host C kernel.  Holes whose band is wider than
+BW_DEV_MAX, and batches the dispatch gate keeps on the host, run in the
+host C kernel too, and the cells of each are counted in dev_stats.  torch
+is imported only when the device is a torch.device.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from __future__ import annotations
 import ctypes
 import os
 import tempfile
+import threading
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -326,7 +332,8 @@ class BatchEngine:
 
     def __init__(self, cmd: str, db: SeqDB,
                  index: Optional[UDBIndex] = None,
-                 device=None) -> None:
+                 device=None,
+                 device_factory: Optional[Callable] = None) -> None:
         o = options()
         self.lib = get_lib()
         self.db = db
@@ -365,7 +372,6 @@ class BatchEngine:
         self._comp = CHAR_TO_COMP_CHAR
         self._gp = GapParams.from_alnparams(ap)
 
-        import threading
         self._lock = threading.Lock()     # device/perf/stats guard
         self._scratches: List[_Scratch] = []
         self._sc = self._new_scratch()
@@ -380,9 +386,14 @@ class BatchEngine:
         self._db_off = offs
         self._db_len = lens
 
-        # device hole alignment: a torch.device, or None for the host
-        # C kernel only
+        # device hole alignment: a torch.device or a ServerDevice, or the
+        # factory's when a window first wants it; neither: the host C
+        # kernel only
         self.device = device
+        self._device_factory = device_factory
+        self._factory_lock = threading.Lock()
+        self._factory_thread = None
+        self._factory_error: Optional[BaseException] = None
         self._class_aps: Dict[int, AlnParams] = {}
         self._class_fused = {}
         # holes of at least this many cells leave chain_batch_c for
@@ -400,10 +411,12 @@ class BatchEngine:
         self.dev_stats = {"dispatches": 0, "device_cells": 0,
                           "host_cells": 0, "rank_device_jobs": 0,
                           "rank_host_rerank_jobs": 0}
-        # adaptive gating on the card only; the CPU (the kernels' plain
-        # versions, for tests) uses -dev_batch_cells
-        if device is not None and device.type == "cuda":
-            self.perf = DevicePerfModel(device.type)
+        # adaptive gating on the card (in this process or the server's:
+        # the factory's device); the CPU (the kernels' plain versions,
+        # for tests) uses -dev_batch_cells
+        if device_factory is not None or (device is not None
+                                          and device.type == "cuda"):
+            self.perf = DevicePerfModel("cuda")
 
     def _new_scratch(self) -> _Scratch:
         sc = _Scratch(self.lib, self.ah, self.ap.nucleo, self._sub_mx,
@@ -538,14 +551,27 @@ class BatchEngine:
             <= self.BW_DEV_MAX
         use_device = False
         # the device DP scores nucleotides only (scalar match/mismatch)
-        if self.ap.nucleo and self.device is not None and dev_ok.any():
+        if self.ap.nucleo and dev_ok.any() and (
+                self.device is not None or self._device_factory is not None):
             if self.dev_batch_min_cells is not None:
                 use_device = total_cells >= self.dev_batch_min_cells
             elif self.perf is not None:
-                use_device = self.perf.device_wins(
-                    total_cells, up_bytes, dn_bytes,
-                    max(1, 2 * self._windows_left)) \
-                    or self.perf.should_probe(total_cells)
+                left = max(1, 2 * self._windows_left)
+                use_device = self.perf.device_wins(total_cells, up_bytes,
+                                                   dn_bytes, left)
+                if (not use_device and not self.perf.warm
+                        and self.perf.device_wins(total_cells, up_bytes,
+                                                  dn_bytes, 1 << 30)):
+                    # only the first dispatch's tax vetoes the device,
+                    # which a warm server has paid: find out (the
+                    # factory: a ping where a server is up)
+                    self.ensure_device()
+                    use_device = self.perf.warm and self.perf.device_wins(
+                        total_cells, up_bytes, dn_bytes, left)
+                use_device = use_device or self.perf.should_probe(
+                    total_cells)
+        if use_device:
+            self.ensure_device()
         host = np.nonzero(~dev_ok if use_device else
                           np.ones(n_hole, bool))[0]
         paths: List[Optional[bytes]] = [None] * n_hole
@@ -624,13 +650,64 @@ class BatchEngine:
         return ap
 
     def _class_fused_aligner(self, cls_bits: int):
-        """The device aligner of a terminal-penalty class."""
+        """The device aligner of a terminal-penalty class: on the server
+        (which derives the class's AlnParams from the command's) or in
+        this process."""
         fa = self._class_fused.get(cls_bits)
         if fa is None:
-            from ..ops.wavefront_nw import TorchWaveAligner
-            fa = TorchWaveAligner(self._class_device(cls_bits), self.device)
+            if getattr(self.device, "is_server", False):
+                from ..device_server import ServerClassAligner
+                fa = ServerClassAligner(self.device.client, self.ap,
+                                        cls_bits)
+            else:
+                from ..ops.wavefront_nw import TorchWaveAligner
+                fa = TorchWaveAligner(self._class_device(cls_bits),
+                                      self.device)
             self._class_fused[cls_bits] = fa
         return fa
+
+    def _set_device(self, dev) -> None:
+        """Take the factory's device; a warm server's first dispatch pays
+        no tax."""
+        if getattr(dev, "server_warm", False):
+            self.perf.warm = True
+        self.device = dev
+
+    def ensure_device(self):
+        """The device, from the factory if it has none yet: the factory
+        runs once, here or in the warm-up thread, whose exception this
+        raises.  None without device and factory."""
+        th = self._factory_thread
+        if th is not None:
+            th.join()
+        with self._factory_lock:
+            if self._factory_error is not None:
+                raise self._factory_error
+            if self.device is None and self._device_factory is not None:
+                self._set_device(self._device_factory())
+        return self.device
+
+    def _ensure_device_async(self) -> None:
+        """Run the factory in a thread (the server's ping or spawn, or
+        torch's import and the CUDA start) beside the host's parse, rank
+        and chain stages, which release the GIL; ensure_device() joins
+        it."""
+        with self._factory_lock:
+            if (self.device is not None or self._device_factory is None
+                    or self._factory_thread is not None):
+                return
+
+            def work():
+                try:
+                    dev = self._device_factory()
+                except BaseException as e:  # noqa: BLE001 - to the command
+                    self._factory_error = e
+                    return
+                with self._factory_lock:
+                    self._set_device(dev)
+
+            self._factory_thread = threading.Thread(target=work, daemon=True)
+            self._factory_thread.start()
 
     def _finish_round(self, sc, jbuf, j_off, pair_j, pair_t, status,
                       pair_seg_off, hole_paths, hole_off, job_state):
@@ -758,6 +835,11 @@ class BatchEngine:
                 raise SystemExit("Invalid -strand, must be plus or both")
         win = _FastaWindows(query_path)
         n = win.n
+        # long sequences are the hole DP's workload: the factory's device
+        # starts now, beside the host stages, not at the first dispatch
+        if n and self.device is None and self._device_factory is not None \
+                and int(np.diff(win.seq_off).max()) >= 2000:
+            self._ensure_device_async()
         progress.start("Searching")
         db = self.db
         # fast label decode (slow _proc_label only when options demand)
@@ -874,7 +956,6 @@ class BatchEngine:
             # per-thread scratch; ex.map preserves window order, so the
             # emitted bytes are identical to the serial path
             import concurrent.futures as cf
-            import threading
             tl = threading.local()
 
             def work(b):
@@ -894,6 +975,8 @@ class BatchEngine:
                 self._windows_left = n_windows - wi
                 emit_window(lo, hi, compute_window(lo, hi, self._sc))
         progress.done(f"{n} queries")
+        if self._factory_thread is not None:
+            self._factory_thread.join()
         from .. import runlog
         runlog.note_index(self.index)
         ds = self.dev_stats
@@ -909,7 +992,8 @@ class BatchEngine:
             import json
             with open(stats_path, "a") as f:
                 f.write(json.dumps({
-                    "device": self.device is not None, **ds,
+                    "device": self.device is not None,
+                    "server": getattr(self.device, "is_server", False), **ds,
                     "host_rate": None if self.perf is None
                     else round(self.perf.host_rate),
                     "dev_rate": None if self.perf is None

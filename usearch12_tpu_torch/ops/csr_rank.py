@@ -27,7 +27,7 @@ ends); per-target counts by bincount over row * TP + target; the prefix
 maxima by cummax, or the first touches by scatter_reduce(amin); the top K
 by topk over one int64 key a target.  The hit stream is capped at
 CAP_MAX positions a query; queries above it come back `uncertain` and
-make_engine_override ranks them on the host.
+make_engine_override (ops/csr_host.py) ranks them on the host.
 """
 
 from __future__ import annotations
@@ -37,87 +37,42 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..config import options
-from ..search.terminator import Terminator
-from ..search.usorted import big_query_step
+from .csr_host import CSRRanker, make_engine_override  # noqa: F401
 
 
-class CSRDeviceRanker:
+class CSRDeviceRanker(CSRRanker):
     """Exact USORT ranking of query windows from device-resident CSR
     postings, with the semantics of the host ranker on the same side of
-    -big."""
-
-    # hit-stream positions a query, at most (the JAX ranker's ceiling)
-    CAP_MAX = 1 << 18
+    -big (the host half is ops/csr_host.py's)."""
 
     def __init__(self, index, device, topk: int = 64,
                  bump: Optional[int] = None, chunk_b: int = 64) -> None:
-        o = options()
-        index._flatten()
-        self.index = index
-        self.device = torch.device(device)
-        self.topk = topk
-        self.bump = int(o.uns("bump")) if bump is None else bump
-        self.chunk_b = chunk_b
-        self.t = index.seq_count
-        params = index.params
-        self._params = params
-        # UDBSearchBig above -big targets, as the host ranker arms it
-        # (engine/batch.py:_new_scratch, search/usorted.py:rank)
-        self.big = bool(o.filled("id")) and self.t > o.uns("big")
-        self._step_args = (o.flt("id"), params.word_length, params.is_nucleo,
-                           o.uns("stepwords"), getattr(index, "db_step", 1)
-                           ) if self.big else None
-        v = params.slot_count
-        self._v = v
-        # an extra empty row V is the padding word; postings end with one
-        # entry T, where the hit stream's padding positions point
-        starts = np.zeros(v + 2, np.int64)
-        starts[:v + 1] = index.starts
-        starts[v + 1] = starts[v]
-        sizes = np.zeros(v + 1, np.int64)
-        sizes[:v] = index.sizes
-        self._sizes_np = sizes
-        post = np.concatenate([np.asarray(index.postings, np.int32),
-                               np.array([self.t], np.int32)])
-        dev = self.device
-        self._starts = torch.from_numpy(starts).to(dev)
-        self._sizes = torch.from_numpy(sizes).to(dev)
-        self._postings = torch.from_numpy(post).to(dev)
+        super().__init__(index, topk, bump, chunk_b)
+        self._put(torch.device(device), *self.csr_arrays())
+
+    @classmethod
+    def from_arrays(cls, t: int, starts, sizes, postings, topk: int,
+                    bump: int, big: bool, device) -> "CSRDeviceRanker":
+        """The device half alone, from csr_arrays()'s arrays of a DB of t
+        targets: the resident server's ranker (the JAX package's
+        CSRDeviceRanker.from_arrays), whose chunks' words another
+        process makes."""
+        self = cls.__new__(cls)
+        self.index = None
+        self.t, self.topk, self.bump, self.big = t, topk, bump, big
+        self._put(torch.device(device), starts, sizes, postings)
+        return self
+
+    def _put(self, device: torch.device, starts, sizes, post) -> None:
+        self.device = device
+        self._starts = torch.from_numpy(np.asarray(starts, np.int64)).to(
+            device)
+        self._sizes = torch.from_numpy(np.asarray(sizes, np.int64)).to(
+            device)
+        self._postings = torch.from_numpy(np.asarray(post, np.int32)).to(
+            device)
         # dense count rows of TP >= T + 1 columns
         self.t_bits = max(int(self.t + 1).bit_length(), 7)
-
-    # -- host half -------------------------------------------------------
-    def prepare_chunks(self, jbuf: np.ndarray, j_off: np.ndarray):
-        """Letters -> per-chunk padded word arrays (every unique word, or
-        the stepped ones in big mode) and one power-of-two geometry for
-        the window.  Returns (n_jobs, [(lo, hi, qw, cap)], over)."""
-        params = self._params
-        n_jobs = len(j_off) - 1
-        uw = []
-        for j in range(n_jobs):
-            w = params.unique_words(jbuf[j_off[j]:j_off[j + 1]])
-            if self.big:
-                w = w[::big_query_step(len(w), *self._step_args)]
-            uw.append(w)
-        K = self.topk
-        max_w = max([len(w) for w in uw] + [8])
-        wmax = 1 << int(np.ceil(np.log2(max_w)))
-        totals = np.array([int(self._sizes_np[w].sum()) for w in uw] + [0],
-                          np.int64)[:n_jobs]
-        over = totals > self.CAP_MAX
-        fit = totals[~over] if (~over).any() else np.array([64])
-        max_hits = max(int(fit.max(initial=64)), 64, K)
-        cap = min(1 << int(np.ceil(np.log2(max_hits))), self.CAP_MAX)
-        chunks = []
-        for lo in range(0, n_jobs, self.chunk_b):
-            hi = min(lo + self.chunk_b, n_jobs)
-            qw = np.full((self.chunk_b, wmax), self._v, dtype=np.int64)
-            for j, w in enumerate(uw[lo:hi]):
-                if not over[lo + j]:
-                    qw[j, :len(w)] = w
-            chunks.append((lo, hi, qw, cap))
-        return n_jobs, chunks, over
 
     # -- device half -----------------------------------------------------
     def hits(self, qw: torch.Tensor, cap: int) -> torch.Tensor:
@@ -217,60 +172,3 @@ class CSRDeviceRanker:
             nc, nt, nextv = self.rank_sorted(count)
         out = torch.stack([nc, nt], 0).cpu().numpy()
         return out[0], out[1], nextv.cpu().numpy()
-
-    def rank_window(self, jbuf: np.ndarray, j_off: np.ndarray):
-        """-> (cand (n_jobs, K) int64, cnts uint32, out_n int32, uncertain
-        bool), the JAX ranker's contract: each job's first out_n
-        candidates are its ranked list (cut at K), cand T where the count
-        is 0; uncertain jobs (over CAP_MAX hits) need the host's
-        ranking."""
-        n_jobs, chunks, over = self.prepare_chunks(jbuf, j_off)
-        K = self.topk
-        cnts = np.zeros((n_jobs, K), dtype=np.int64)
-        cand = np.full((n_jobs, K), self.t, dtype=np.int64)
-        nextv = np.zeros(n_jobs, dtype=np.int64)
-        for lo, hi, qw, cap in chunks:
-            c_n, t_n, n_n = self.run_chunk(qw, cap)
-            cnts[lo:hi] = c_n[:hi - lo]
-            cand[lo:hi] = t_n[:hi - lo]
-            nextv[lo:hi] = n_n[:hi - lo]
-        out = self._finish(cand, cnts, nextv)
-        out[3][over] = True
-        return out
-
-    def _finish(self, cand, cnts, nextv):
-        valid = (cnts > 0) & (cand < self.t)
-        first_bad = np.where(valid.all(axis=1), cnts.shape[1],
-                             np.argmin(valid, axis=1))
-        minv = np.maximum(nextv // 2, 1)
-        keep = valid & (cnts >= minv[:, None])
-        out_n = np.minimum(first_bad, keep.sum(axis=1)).astype(np.int32)
-        term = Terminator("usearch_global")
-        bound = term.max_accepts + term.max_rejects
-        uncertain = (out_n >= self.topk) & (bound > self.topk)
-        return cand, cnts.astype(np.uint32), out_n, uncertain
-
-
-def make_engine_override(ranker: CSRDeviceRanker, eng):
-    """rank_override for BatchEngine.search_window: the window ranked on
-    the ranker's device; only its uncertain jobs are ranked again on the
-    host (counted in eng.dev_stats["rank_host_rerank_jobs"]).  A failure
-    of the device raises."""
-    def override(jbuf, j_off):
-        cand, cnts, out_n, unc = ranker.rank_window(jbuf, j_off)
-        redo = np.nonzero(unc)[0]
-        if len(redo):
-            parts = [jbuf[j_off[j]:j_off[j + 1]] for j in redo]
-            sub_off = np.zeros(len(redo) + 1, np.int64)
-            np.cumsum([len(x) for x in parts], out=sub_off[1:])
-            h_cand, h_cnts, h_out_n = eng._rank_jobs(
-                np.ascontiguousarray(np.concatenate(parts)), sub_off)
-            for r, j in enumerate(redo):
-                k = min(int(h_out_n[r]), cand.shape[1])
-                cand[j, :k] = h_cand[r, :k]
-                cnts[j, :k] = h_cnts[r, :k]
-                out_n[j] = k
-            eng.dev_stats["rank_host_rerank_jobs"] += len(redo)
-        return (np.ascontiguousarray(cand.astype(np.uint32)),
-                np.ascontiguousarray(cnts), out_n)
-    return override

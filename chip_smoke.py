@@ -109,7 +109,22 @@ Phases, each printing a line, any failure exits non-zero:
      5's slice with -dev_batch_cells 1, blast6 equal to phase 5's,
      5,532,965,001 device cells on the server, whose wavefront_fwd and
      wavefront_trace launches grow by phase 5's counts; (e) shutdown: the
-     server's process gone within 10 s and its socket removed.
+     server's process gone within 10 s and its socket removed;
+ 12. step: the entry's search step (parallel/search_step.py,
+     entry.py): (a) entry() on the card, bit-equal to the same step on the
+     CPU; (b) the step at full size on phase 9's ranking workload (its
+     .udb: 220,000 targets, word length 8, V = 65,536; 2,000 queries,
+     amax 256) on one card and on 1x1, 1x4 and 2x2 meshes of it: counts
+     and tops equal to a numpy judge over the CSR postings and between the
+     meshes, scores bit-equal to the plain versions of banded_nw_fwd and
+     banded_nw_chase on the card; the product, top-1, merge, both kernels
+     (through their wrappers and alone) and the step's wall time, each
+     beside its bound; (c) dryrun_multichip(8) on the card (a 2x4 mesh
+     whose entries are the cards present in turn); (d)
+     sintax_boot_counts on phase 6's m = 32 chunk (128 jobs x 100 boots x
+     32 sampled words against 60,000 targets): the 1x4 mesh equal to 1x1,
+     the CPU equal on 16 jobs, the library's int8 product of the picks'
+     counts equal, and the fused kernel's tops the counts' maxima.
 Phases 1-10 run with USEARCH_DEV_SERVER=0 and pass the card to their
 in-process command lines, so that their card work stays in this process,
 where the launch counts are read, or in the processes they start.
@@ -1079,6 +1094,27 @@ def sintax_chunks(dbf, qf, d):
     return engine, chunks
 
 
+def boot_inputs(engine, words, nuw, m, stream, rr, dev):
+    """Phase 12 (d)'s inputs from phase 6's m = 32 chunk: the DB's (V, T)
+    incidence, each boot's sampled word ids (pick k of boot b of job j is
+    words[j, stream[b * 32 + k] % nuw[j]], as the pick histogram counts
+    it) on the card, and the fused kernel's winners and tops on the
+    chunk."""
+    import numpy as np
+    import torch
+    if not (m == 32).all():
+        fail(f"sintax chunk: picks a boot {set(m.tolist())}, not all 32")
+    k = np.arange(engine.B)[:, None] * 32 + np.arange(32)[None, :]
+    slot = (stream.astype(np.int64)[k][None]
+            % np.maximum(nuw.astype(np.int64), 1)[:, None, None])
+    q = words.shape[0]
+    sampled = np.take_along_axis(words.astype(np.int64),
+                                 slot.reshape(q, -1), 1).reshape(slot.shape)
+    winners, tops = engine.run_chunk(words, nuw, m, stream, rr)
+    return {"w_mat": engine.w_mat, "words": torch.from_numpy(sampled).to(dev),
+            "winners": winners, "tops": tops}
+
+
 def raw_pick_hist(lib, args, P):
     """One launch of a sintax_pick_hist_launch entry point on pick_hist's
     arguments into P, allocated beforehand."""
@@ -1319,6 +1355,7 @@ def phase_sintax(d, dev, phase_done, other_hist=None):
           f"{posts} postings, the build's index_put_ bound "
           f"{build_b[0]:.4f} ms by {build_b[1]}", flush=True)
     sx = check_sintax_kernels(engine, chunks, dev, other_hist)
+    boot = boot_inputs(engine, *chunks[0][1:], dev)
     del engine, chunks
     torch.cuda.empty_cache()
     phase_done(6, t_phase)
@@ -1412,7 +1449,7 @@ def phase_sintax(d, dev, phase_done, other_hist=None):
           f"{stage['classify_window']:.2f} s, run_chunk "
           f"{stage['run_chunk']:.2f} s; {json.dumps(prof)}", flush=True)
     phase_done(7, t_phase)
-    return sx, launches, {"db": dbf, "q": qf, "ref": ref_b}
+    return sx, launches, {"db": dbf, "q": qf, "ref": ref_b}, boot
 
 
 def rank_stages(udb, qf, big_opts, dev):
@@ -2165,6 +2202,304 @@ def phase_server(d, slice_files, sintax_files, rank_files, phase_done):
     phase_done(11, t_phase)
 
 
+def host_top1(index, queries):
+    """The judge of the step's counts and tops: each query's unique words
+    counted over the CSR postings with numpy, the highest count and its
+    lowest target."""
+    import numpy as np
+    starts, post = index.starts, index.postings
+    cnt = np.zeros(len(queries), np.int64)
+    top = np.zeros(len(queries), np.int64)
+    for k, s in enumerate(queries):
+        w = index.params.unique_words(s)
+        u = np.bincount(np.concatenate([post[starts[x]:starts[x + 1]]
+                                        for x in w]),
+                        minlength=index.seq_count)
+        top[k] = int(u.argmax())
+        cnt[k] = u[top[k]]
+    return cnt, top
+
+
+def score_alone(lib, a, b, geo, gp, W, stride, outs):
+    """banded_nw_fwd without traceback, then banded_nw_chase's final row,
+    each one launch of its entry point into outputs allocated beforehand:
+    the step's score route, kernels alone."""
+    import torch
+    mlast, dlb, scores, states, tblast = outs
+    la, lb, dlo, bw = geo
+    stream = torch.cuda.current_stream().cuda_stream
+    err = lib.banded_nw_fwd_launch(
+        a.data_ptr(), b.data_ptr(), a.shape[1], b.shape[1], la.data_ptr(),
+        lb.data_ptr(), dlo.data_ptr(), bw.data_ptr(), gp.data_ptr(), 1.0,
+        -2.0, a.shape[0], W, None, mlast.data_ptr(), dlb.data_ptr(), stream)
+    err = err or lib.banded_nw_chase_launch(
+        None, 0, mlast.data_ptr(), W, dlb.data_ptr(), la.data_ptr(),
+        lb.data_ptr(), dlo.data_ptr(), bw.data_ptr(), gp.data_ptr(),
+        a.shape[0], scores.data_ptr(), states.data_ptr(), tblast.data_ptr(),
+        None, stride, stream)
+    if err != 0:
+        fail(f"the score route's entry points returned CUDA error {err}")
+    return outs
+
+
+def phase_step(rank_files, boot, dev, phase_done):
+    """Phase 12: the entry's search step (parallel/search_step.py,
+    entry.py): (a) entry() on the card against the same step on the CPU;
+    (b) the step at full size on phase 9's ranking workload (its .udb:
+    220,000 targets, V = 65,536; 2,000 queries, amax 256), on one card and
+    on 1x1, 1x4 and 2x2 meshes of it, counts and tops against a numpy
+    judge over the CSR postings, scores against the plain versions of the
+    banded kernels on the card, each stage timed beside its bound; (c)
+    dryrun_multichip(8) on the card; (d) sintax_boot_counts on phase 6's
+    chunk, 1x1 against 1x4, against the CPU (16 jobs), the int8 product
+    of the picks' counts (the library) and the fused kernel's tops.
+    Returns the launches of (b)'s step and of (c)."""
+    import numpy as np
+    import torch
+    from usearch12_tpu_torch import _build, entry
+    from usearch12_tpu_torch.commands import load_db
+    from usearch12_tpu_torch.io.fastx import read_fastx
+    from usearch12_tpu_torch.ops import banded_nw as bn
+    from usearch12_tpu_torch.ops import wavefront_nw as wnw
+    from usearch12_tpu_torch.ops import wavefront_trace as wtr
+    from usearch12_tpu_torch.parallel import incidence as inc
+    from usearch12_tpu_torch.parallel import search_step as ss
+    from usearch12_tpu_torch.parallel.mesh import single_mesh
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+
+    # (a) entry() on the card against the CPU
+    step, args = entry.entry(dev)
+    got = step(*args)
+    want = ss.make_search_step(entry.AMAX, cpu)(*(x.cpu() for x in args))
+    same = all(bit_equal(x.cpu(), y) for x, y in zip(got, want))
+    print(f"step (a) entry(): {[tuple(x.shape) for x in got]} on "
+          f"{got[0].device}, {'bit-equal' if same else 'DIFFERENT'} to the "
+          f"CPU step; counts {got[0].tolist()}, scores {got[2].tolist()}",
+          flush=True)
+    if not same:
+        fail("entry()'s step on the card differs from the CPU step")
+
+    # (b) the full-size step
+    t0 = time.perf_counter()
+    db, index = load_db(rank_files["udb"])
+    queries = [s for _l, s, _q in read_fastx(rank_files["q"], stream=True)]
+    w = ss.build_incidence(index, dev)
+    q = ss.query_onehot(index, queries, dev)
+    a_cls = torch.from_numpy(ss.letter_rows(queries, entry.AMAX)).to(dev)
+    db_cls = torch.from_numpy(ss.letter_rows(db.seqs, entry.AMAX)).to(dev)
+    db_len = torch.tensor([len(x) for x in db.seqs], dtype=torch.int32,
+                          device=dev)
+    gp = torch.tensor(entry.GAP_PENALTIES, device=dev)
+    targs = (q, w, a_cls, db_cls, db_len, gp)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    j_cnt, j_top = host_top1(index, queries)
+    t_judge = time.perf_counter() - t0
+    B, T, V = q.shape[0], w.shape[0], w.shape[1]
+    steps = {"one card": ss.make_search_step(entry.AMAX, dev)}
+    for n_data, n_db in ((1, 1), (1, 4), (2, 2)):
+        steps[f"{n_data}x{n_db}"] = ss.make_sharded_search_step(
+            single_mesh(dev, n_db, n_data), entry.AMAX)
+    outs, walls = {}, {}
+    for name, st in steps.items():
+        st(*targs)                                  # warm-up
+        torch.cuda.synchronize()
+        if name == "one card":
+            bn.banded_nw_fwd.launches = 0
+            bn.banded_nw_chase.launches = 0
+        t0 = time.perf_counter()
+        outs[name] = st(*targs)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        if name == "one card":
+            launches = {"banded_nw_fwd": bn.banded_nw_fwd.launches,
+                        "banded_nw_chase": bn.banded_nw_chase.launches}
+    cnt, top, scores = outs["one card"]
+    judged = (np.array_equal(cnt.cpu().numpy(), j_cnt)
+              and np.array_equal(top.cpu().numpy(), j_top))
+    meshes_same = all(bit_equal(x, y) for o in outs.values()
+                      for x, y in zip(o, outs["one card"]))
+    # the plain versions of the score route on the card
+    la = (a_cls != ss.PAD_LETTER).sum(1, dtype=torch.int32)
+    lb = db_len[top.to(torch.int64)]
+    b_rows = db_cls[top.to(torch.int64)]
+    dlo, bw = ss.step_band(la, lb)
+    W = int(bw.max())
+    if W > bn.BAND_LANES:
+        fail(f"step (b): a band of {W} lanes on the ranking workload")
+    gp16 = torch.zeros(16, dtype=torch.float32, device=dev)
+    gp16[:12] = gp
+    geo = (la, lb, dlo, bw)
+    t0 = time.perf_counter()
+    _, p_mlast, p_dlb = bn.banded_nw_fwd_plain(a_cls, b_rows, *geo, gp16,
+                                               1.0, -2.0, W, False)
+    p_scores = bn.banded_nw_chase_plain(None, p_mlast, p_dlb, *geo, gp16,
+                                        1)[0]
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    plain_same = bit_equal(scores, p_scores)
+    print(f"step (b) {B} queries x {T} targets (V {V}), amax "
+          f"{entry.AMAX}: inputs on the card in {t_build:.2f} s (incidence "
+          f"{w.numel() / 1e9:.2f} GB int8), numpy judge {t_judge:.2f} s; "
+          f"step wall (ms) "
+          f"{json.dumps({k: round(v * 1e3, 3) for k, v in walls.items()})}; "
+          f"counts and tops {'equal' if judged else 'DIFFERENT'} to the "
+          f"judge on every query, the meshes "
+          f"{'equal' if meshes_same else 'DIFFERENT'}; scores "
+          f"{'bit-equal' if plain_same else 'DIFFERENT'} to the plain "
+          f"versions on the card ({plain_ms:.1f} ms), band {W}; launches "
+          f"{launches}; top counts {cnt[:4].tolist()}, scores "
+          f"{scores[:4].tolist()}", flush=True)
+    if not (judged and meshes_same and plain_same):
+        fail("step (b): counts, tops or scores differ")
+    if min(launches.values()) <= 0:
+        fail(f"step (b): a kernel was not launched on the step: {launches}")
+    if not torch.isfinite(scores).all():
+        fail("step (b): a score is not finite")
+    # the stages of the step, each beside its bound
+    rows = ss._chunk_rows(T)
+    chunks = [(lo, min(lo + rows, B)) for lo in range(0, B, rows)]
+
+    def product():
+        return [inc.int8_mm(q[lo:hi], w) for lo, hi in chunks]
+    prod_ms, us = cuda_ms(product, 3)
+    prod_b = bound(nbytes_of(q, w, *us), 2 * B * V * T, PEAK_INT8)
+
+    def top1():
+        for u in us:
+            t = torch.argmax(u, 1)
+            u.gather(1, t[:, None])
+    top_ms, _ = cuda_ms(top1, 5)
+    top_lib_ms, _ = cuda_ms(lambda: [torch.max(u, 1) for u in us], 5)
+    top_b = bound(nbytes_of(*us) + 12 * B, B * T)
+    del us
+    torch.cuda.empty_cache()
+    keys = torch.randint(0, 1 << 40, (4, B), device=dev)
+    merge_ms, _ = cuda_ms(lambda: keys.amax(0), 20)
+    merge_b = bound(nbytes_of(keys) + 8 * B, 3 * B)
+    lib = _build.load_library()
+    stride = (int((la + lb).max()) + 3) // 4
+    alone = (torch.empty((B, W), dtype=torch.float32, device=dev),
+             torch.empty(B, dtype=torch.float32, device=dev),
+             torch.empty(B, dtype=torch.float32, device=dev),
+             torch.empty(B, dtype=torch.uint8, device=dev),
+             torch.empty((B, W), dtype=torch.uint8, device=dev))
+    fwd_ms, _ = cuda_ms(lambda: bn.banded_nw_fwd(
+        a_cls, b_rows, *geo, gp16, 1.0, -2.0, with_traceback=False), 10)
+    both_ms, _ = cuda_ms(lambda: score_alone(lib, a_cls, b_rows, geo, gp16,
+                                             W, stride, alone), 10)
+    if not bit_equal(alone[2], scores):
+        fail("step (b): the score route alone differs from the step")
+    mlast, dlb = alone[0], alone[1]
+    fwd_alone_ms, _ = cuda_ms(lambda: lib.banded_nw_fwd_launch(
+        a_cls.data_ptr(), b_rows.data_ptr(), entry.AMAX, entry.AMAX,
+        la.data_ptr(), lb.data_ptr(), dlo.data_ptr(), bw.data_ptr(),
+        gp16.data_ptr(), 1.0, -2.0, B, W, None, mlast.data_ptr(),
+        dlb.data_ptr(), torch.cuda.current_stream().cuda_stream), 10)
+    chase_ms, _ = cuda_ms(lambda: bn.banded_nw_chase(None, mlast, dlb, *geo,
+                                                     gp16), 10)
+    chase_alone_ms, _ = cuda_ms(lambda: lib.banded_nw_chase_launch(
+        None, 0, mlast.data_ptr(), W, dlb.data_ptr(), la.data_ptr(),
+        lb.data_ptr(), dlo.data_ptr(), bw.data_ptr(), gp16.data_ptr(), B,
+        *(x.data_ptr() for x in alone[2:]), None, stride,
+        torch.cuda.current_stream().cuda_stream), 10)
+    if not bit_equal(alone[2], scores):
+        fail("step (b): banded_nw_chase alone differs from the step")
+    # the product on one shard of the 1x4 mesh (55,000 target rows, a
+    # multiple of 8) and on 40 rows more (a multiple of 32)
+    shard_ms = [cuda_ms(lambda: inc.int8_mm(q, w[:n]), 3)[0]
+                for n in (T // 4, T // 4 + 40)]
+    cells = int(band_cells(*(x.cpu().numpy() for x in geo)).sum())
+    fwd_b = bound(nbytes_of(a_cls, b_rows, *geo, gp16, mlast, dlb),
+                  DP_OPS * cells)
+    n_last = int((lb - dlo + 1).sum())
+    chase_b = bound(nbytes_of(mlast, dlb, *geo, gp16, *alone[2:]),
+                    3 * n_last)
+    step_b = sum(x[0] for x in (prod_b, top_b, fwd_b, chase_b))
+    print(f"step (b) stages: product {prod_ms:.3f} ms ({len(chunks)} chunks "
+          f"of {rows} rows; bound {prod_b[0]:.3f} ms by {prod_b[1]}; the "
+          f"library's torch._int_mm is the product); top-1 {top_ms:.3f} ms "
+          f"(bound {top_b[0]:.4f} ms by {top_b[1]}; torch.max(u, 1) "
+          f"{top_lib_ms:.3f} ms); merge of 4 shards' keys {merge_ms:.4f} ms "
+          f"(bound {merge_b[0]:.6f} ms by {merge_b[1]}); banded_nw_fwd "
+          f"without traceback {fwd_ms:.4f} ms through the wrapper, "
+          f"{fwd_alone_ms:.4f} ms alone ({cells} cells, bound "
+          f"{fwd_b[0]:.4f} ms by {fwd_b[1]}); banded_nw_chase's final row "
+          f"{chase_ms:.4f} ms through the wrapper (bound {chase_b[0]:.5f} "
+          f"ms by {chase_b[1]}), {chase_alone_ms:.4f} ms alone; both "
+          f"alone {both_ms:.4f} ms; the product on {T // 4} target rows "
+          f"{shard_ms[0]:.3f} ms, on {T // 4 + 40} {shard_ms[1]:.3f} ms; "
+          f"the plain "
+          f"versions {plain_ms:.1f} ms; the step's wall "
+          f"{walls['one card'] * 1e3:.3f} ms on one card (bound, its "
+          f"stages' sum, {step_b:.3f} ms); clocks {clocks()}", flush=True)
+    del w, q, targs, outs, steps, keys
+    torch.cuda.empty_cache()
+
+    # (c) the dry run of every mesh path on the card
+    t0 = time.perf_counter()
+    wnw.wavefront_fwd.launches = 0
+    wtr.wavefront_trace.launches = 0
+    entry.dryrun_multichip(8, dev)
+    dry = {"wavefront_fwd": wnw.wavefront_fwd.launches,
+           "wavefront_trace": wtr.wavefront_trace.launches}
+    print(f"step (c) dryrun_multichip(8) on the card in "
+          f"{time.perf_counter() - t0:.2f} s; sharded hole DP launches {dry}",
+          flush=True)
+    if min(dry.values()) <= 0:
+        fail(f"step (c): a hole DP kernel was not launched: {dry}")
+
+    # (d) SINTAX's boot counts on phase 6's chunk
+    w_mat, words = boot["w_mat"], boot["words"]
+    Q, NB, M = words.shape
+    T = w_mat.shape[1]
+    one_ms, u1 = cuda_ms(lambda: ss.sintax_boot_counts(w_mat, words,
+                                                       device=dev), 3)
+    mesh4 = single_mesh(dev, 4)
+    four_ms, u4 = cuda_ms(lambda: ss.sintax_boot_counts(w_mat, words,
+                                                        mesh=mesh4), 3)
+    same4 = torch.equal(u1, u4)
+    del u4
+    tops_same = np.array_equal(u1.amax(2).cpu().numpy(), boot["tops"])
+    win = torch.from_numpy(boot["winners"].astype(np.int64)).to(dev)
+    wins_same = np.array_equal(u1.gather(2, win[:, :, None])[:, :, 0]
+                               .cpu().numpy(), boot["tops"])
+    t0 = time.perf_counter()
+    u_cpu = ss.sintax_boot_counts(w_mat.cpu(), words[:16].cpu(), device=cpu)
+    cpu_s = time.perf_counter() - t0
+    cpu_same = torch.equal(u_cpu, u1[:16].cpu())
+    # the library: one int8 product of each boot's word counts (P) with
+    # the incidence
+    P = torch.zeros((Q * NB, w_mat.shape[0]), dtype=torch.int8, device=dev)
+    rows_ = torch.arange(Q * NB, device=dev).repeat_interleave(M)
+    P.index_put_((rows_, words.reshape(-1)),
+                  torch.ones(1, dtype=torch.int8, device=dev).expand(
+                      rows_.numel()), accumulate=True)
+    lib_ms, u_lib = cuda_ms(lambda: torch._int_mm(P, w_mat), 3)
+    lib_same = torch.equal(u_lib, u1.view(Q * NB, T))
+    del u_lib, P, rows_
+    touched = int(torch.unique(words).numel())
+    boot_b = bound(touched * T + nbytes_of(words, u1), Q * NB * M * T)
+    print(f"step (d) sintax_boot_counts: {Q} jobs x {NB} boots x {M} words "
+          f"against {T} targets; 1x1 {one_ms:.3f} ms, 1x4 on one card "
+          f"{four_ms:.3f} ms (bound {boot_b[0]:.4f} ms by {boot_b[1]}, "
+          f"{touched} word rows); 1x4 {'equal' if same4 else 'DIFFERENT'} "
+          f"to 1x1; the CPU on the first 16 jobs {cpu_s:.2f} s, "
+          f"{'equal' if cpu_same else 'DIFFERENT'}; torch._int_mm of the "
+          f"picks' counts {lib_ms:.3f} ms, "
+          f"{'equal' if lib_same else 'DIFFERENT'}; the fused kernel's tops "
+          f"{'equal' if tops_same and wins_same else 'DIFFERENT'} to the "
+          f"counts' maxima and at its winners", flush=True)
+    if not (same4 and cpu_same and lib_same and tops_same and wins_same):
+        fail("step (d): sintax_boot_counts differs")
+    del u1, boot
+    torch.cuda.empty_cache()
+    phase_done(12, t_phase)
+    return launches, dry
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "usearch12_tpu_torch")):
         fail("run from a checkout of the repository (no "
@@ -2398,7 +2733,7 @@ def main():
     phase_done(5, t_phase)
 
     with phase_dir(work, "sintax") as d:
-        sx, sx_launches, sintax_files = phase_sintax(
+        sx, sx_launches, sintax_files, boot = phase_sintax(
             d, dev, phase_done, None if other is None else other["hist"])
 
     # 8. the cost model's cold-start constants on this card
@@ -2416,6 +2751,12 @@ def main():
     torch.cuda.empty_cache()
     with phase_dir(work, "server") as d:
         phase_server(d, slice_files, sintax_files, rank_files, phase_done)
+
+    # 12. the entry's search step, on phase 9's files
+    torch.cuda.empty_cache()
+    step_launches, dry_launches = phase_step(rank_files, boot, dev,
+                                             phase_done)
+    del boot
     work_dir.cleanup()
 
     def row(name, source, replaces, n, err, ms, plain_ms, bnd,
@@ -2430,22 +2771,24 @@ def main():
     print(json.dumps({"kernels": [
         row("wavefront_fwd", "wavefront_fwd.cu",
             "usearch12_tpu/ops/wavefront_nw.py:257",
-            launches["wavefront_fwd"], max(big["fwd_err"],
-                                           shape_a["fwd_err"]),
+            launches["wavefront_fwd"] + dry_launches["wavefront_fwd"],
+            max(big["fwd_err"], shape_a["fwd_err"]),
             big["fwd_ms"], big["fwd_plain_ms"], big["fwd_bound"]),
         row("wavefront_trace", "wavefront_trace.cu",
             "usearch12_tpu/ops/wavefront_trace.py:54",
-            launches["wavefront_trace"], big["trace_err"], big["trace_ms"],
+            launches["wavefront_trace"] + dry_launches["wavefront_trace"],
+            big["trace_err"], big["trace_ms"],
             big["trace_plain_ms"], big["trace_bound"]),
         row("banded_nw_fwd", "banded_nw.cu",
             "usearch12_tpu/ops/banded_nw.py:122",
-            orc_launches["banded_nw_fwd"],
+            orc_launches["banded_nw_fwd"] + step_launches["banded_nw_fwd"],
             max(orc["fwd_err"], orc_wide["fwd_err"]), orc["fwd_ms"],
             orc["fwd_plain_ms"], orc["fwd_bound"],
             kernel_ms=orc["fwd_kernel_ms"]),
         row("banded_nw_chase", "banded_nw.cu",
             "usearch12_tpu/ops/banded_nw.py:569",
-            orc_launches["banded_nw_chase"],
+            orc_launches["banded_nw_chase"]
+            + step_launches["banded_nw_chase"],
             max(orc["chase_err"], orc_wide["chase_err"]), orc["chase_ms"],
             orc["chase_plain_ms"], orc["chase_bound"],
             kernel_ms=orc["chase_kernel_ms"]),

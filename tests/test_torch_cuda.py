@@ -556,6 +556,100 @@ def test_mesh_ranker_on_card_matches_cpu(card, tmp_path, n_db, extra):
     assert got[2].min() > 0
 
 
+
+def _step_pairs(seed, n):
+    """Query and target letter rows of n pairs at lengths 20-256 (bands of
+    the step from 33 to above 128 lanes), a few queries with Ns."""
+    from usearch12_tpu_torch.parallel import search_step as ss
+    rng = np.random.default_rng(seed)
+    conv = np.frombuffer(b"ACGT", np.uint8)
+    qs, ts = [], []
+    for k in range(n):
+        la = int(rng.integers(20, 257))
+        lb = int(np.clip(la + rng.integers(-120, 121), 20, 256))
+        a = conv[rng.integers(0, 4, la)]
+        b = np.resize(a, lb)
+        b[rng.random(lb) < 0.1] = conv[rng.integers(0, 4)]
+        if k % 7 == 0:
+            a[rng.integers(0, la, 2)] = ord("N")
+        qs.append(a)
+        ts.append(b)
+    return (torch.from_numpy(ss.letter_rows(qs, 256)),
+            torch.from_numpy(ss.letter_rows(ts, 256)),
+            torch.tensor([len(t) for t in ts], dtype=torch.int32))
+
+
+def test_banded_score_route_matches_plain_versions(card):
+    """banded_nw_fwd without traceback and banded_nw_chase with tb None (the
+    step's score route) bit-equal to their plain versions at the step's
+    bands, 1,000 pairs of 20-256 nt."""
+    from usearch12_tpu_torch.ops import banded_nw as bn
+    from usearch12_tpu_torch.parallel import search_step as ss
+    a, b, lb = _step_pairs(5, 1000)
+    la = (a != ss.PAD_LETTER).sum(1, dtype=torch.int32)
+    dlo, bw = ss.step_band(la, lb)
+    keep = bw <= bn.BAND_LANES
+    args = [x[keep].contiguous() for x in (a, b, la, lb, dlo, bw)]
+    gp = wnw.gap_params(wnw.nucleo_params(-10.3, -1.1, -0.7, -0.4))
+    fwd = bn.banded_nw_fwd(*(x.to(card) for x in args), gp.to(card), 1.0,
+                           -2.0, with_traceback=False)
+    plain = bn.banded_nw_fwd_plain(*args, gp, 1.0, -2.0, fwd[1].shape[1],
+                                   with_traceback=False)
+    assert fwd[0] is None and plain[0] is None
+    for x, y in zip(fwd[1:], plain[1:]):
+        assert _bit_equal(x.cpu(), y)
+    geo = [x.to(card) for x in args[2:]]
+    ch = bn.banded_nw_chase(None, fwd[1], fwd[2], *geo, gp.to(card))
+    ch_plain = bn.banded_nw_chase_plain(None, plain[1], plain[2], *args[2:],
+                                        gp, 1)
+    assert ch[3] is None and ch_plain[3] is None
+    for x, y in zip(ch[:3], ch_plain[:3]):
+        assert _bit_equal(x.cpu(), y)
+
+
+def test_search_step_on_card_matches_cpu(card):
+    """make_search_step on cuda:0 and make_sharded_search_step on a 1x4
+    and a 2x2 mesh of it equal the CPU step: the entry's data, and pairs
+    whose bands run from 33 to above 128 lanes (the wide ones on the hole
+    DP's kernels) with Ns in some queries."""
+    from usearch12_tpu_torch import entry
+    from usearch12_tpu_torch.ops import banded_nw as bn
+    from usearch12_tpu_torch.parallel import search_step as ss
+    from usearch12_tpu_torch.parallel.mesh import single_mesh
+    cpu = torch.device("cpu")
+    a, b, lb = _step_pairs(9, 200)
+    n = a.shape[0]
+    eye = torch.zeros((n, n), dtype=torch.int8)
+    eye.fill_diagonal_(1)
+    gp = torch.tensor(entry.GAP_PENALTIES)
+    cases = [entry._example_data(n_queries=40, seed=5, device=cpu),
+             (eye, eye, a, b, lb, gp)]
+    for args in cases:
+        want = ss.make_search_step(256, cpu)(*args)
+        n0 = bn.banded_nw_fwd.launches
+        steps = [ss.make_search_step(256, card),
+                 ss.make_sharded_search_step(single_mesh(card, 4), 256),
+                 ss.make_sharded_search_step(single_mesh(card, 2, 2), 256)]
+        for step in steps:
+            got = step(*(x.to(card) for x in args))
+            for x, y in zip(got, want):
+                assert x.device.type == "cuda" and _bit_equal(x.cpu(), y)
+        assert bn.banded_nw_fwd.launches > n0
+
+
+def test_align_sharded_on_card_matches_align(card):
+    """TorchWaveAligner.align_sharded over a "data" axis of 4 entries of
+    cuda:0 equals align() on the card and on the CPU."""
+    from usearch12_tpu_torch.parallel.mesh import Mesh
+    ap = wnw.nucleo_params(-10.3, -1.1, -0.7, -0.4)
+    pairs = _pairs(11, 101, 40, 600)
+    aligner = wnw.TorchWaveAligner(ap, card)
+    s1, p1 = aligner.align(pairs, 24)
+    s2, p2 = aligner.align_sharded(pairs, 24, Mesh([[card]] * 4))
+    s3, p3 = wnw.TorchWaveAligner(ap, torch.device("cpu")).align(pairs, 24)
+    assert s1.tobytes() == s2.tobytes() == s3.tobytes()
+    assert p1 == p2 == p3
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

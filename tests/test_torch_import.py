@@ -129,12 +129,29 @@ def test_every_module_imports_with_jax_package_blocked():
     mods = [m.name for m in pkgutil.walk_packages(
         usearch12_tpu_torch.__path__, "usearch12_tpu_torch.")]
     assert len(mods) >= 60
+    assert {"usearch12_tpu_torch.entry",
+            "usearch12_tpu_torch.parallel.search_step"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {BLOCKED!r}: sys.modules[m] = None\n"
             f"for m in {mods!r}: importlib.import_module(m)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
+
+
+def test_entry_runs_with_jax_package_blocked():
+    """`python -m usearch12_tpu_torch.entry 8 --device cpu` (the search
+    step, then the dry run of every mesh path) in a process where jax and
+    usearch12_tpu cannot be imported."""
+    code = ("import runpy, sys\n"
+            f"for m in {BLOCKED!r}: sys.modules[m] = None\n"
+            "sys.argv = ['entry', '8', '--device', 'cpu']\n"
+            "runpy.run_module('usearch12_tpu_torch.entry', "
+            "run_name='__main__')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "entry OK" in r.stdout and "dryrun_multichip OK" in r.stdout
 
 
 def test_host_commands_import_no_torch(tmp_path):

@@ -274,15 +274,15 @@ class TorchWaveAligner:
         self.match, self.mismatch = match_mismatch(ap)
         self.tb_budget = tb_budget
 
-    def align(self, pairs: Sequence, band_radius: int, nucleo: bool = True
-              ) -> Tuple[np.ndarray, List[str]]:
-        if not nucleo:
-            raise ValueError("TorchWaveAligner scores nucleotides only")
+    def _launch(self, pairs: Sequence, band_radius: int,
+                device: torch.device, gp: torch.Tensor):
+        """Launch the forward DP and the traceback of `pairs` on `device`,
+        in pieces of at most tb_budget traceback bytes: a list of (slice of
+        pairs, scores, ops, lens), the last three on the device."""
         n = len(pairs)
-        scores = np.zeros(n, np.float32)
-        paths: List[str] = [""] * n
         la, lb, dlo, bw = pair_geometry(pairs, band_radius)
         nbytes = tb_nbytes(la, lb, bw)
+        out = []
         lo = 0
         while lo < n:
             # greedy split: as many pairs as fit the traceback budget
@@ -290,15 +290,52 @@ class TorchWaveAligner:
                 np.cumsum(nbytes[lo:]), self.tb_budget, side="right")))
             sl = slice(lo, hi)
             w = pack_launch(pairs[sl], la[sl], lb[sl], dlo[sl], bw[sl],
-                            self.device)
-            tb, mlast, dlb = wavefront_fwd(*w, self.gp, self.match,
-                                           self.mismatch)
-            sc, ops, lens = wavefront_trace(tb, w.tb_off, mlast, dlb, w.la,
-                                            w.lb, w.dlo, w.bw, self.gp)
+                            device)
+            tb, mlast, dlb = wavefront_fwd(*w, gp, self.match, self.mismatch)
+            out.append((sl,) + wavefront_trace(tb, w.tb_off, mlast, dlb,
+                                               w.la, w.lb, w.dlo, w.bw, gp))
+            lo = hi
+        return out
+
+    @staticmethod
+    def _collect(n: int, launched) -> Tuple[np.ndarray, List[str]]:
+        scores = np.zeros(n, np.float32)
+        paths: List[str] = [""] * n
+        for sl, sc, ops, lens in launched:
             scores[sl] = sc.cpu().numpy()
             paths[sl] = decode_ops(ops.cpu().numpy(), lens.cpu().numpy())
-            lo = hi
         return scores, paths
+
+    def align(self, pairs: Sequence, band_radius: int, nucleo: bool = True
+              ) -> Tuple[np.ndarray, List[str]]:
+        if not nucleo:
+            raise ValueError("TorchWaveAligner scores nucleotides only")
+        return self._collect(len(pairs), self._launch(
+            pairs, band_radius, self.device, self.gp))
+
+    def align_sharded(self, pairs: Sequence, band_radius: int, mesh,
+                      axis: str = "data", nucleo: bool = True
+                      ) -> Tuple[np.ndarray, List[str]]:
+        """align() with the pairs split into contiguous blocks, one for each
+        entry along `axis` of a Mesh (parallel/mesh.py), each block aligned
+        on its entry's device; every block is launched before any result
+        is copied back.  The same outputs as align()."""
+        if not nucleo:
+            raise ValueError("TorchWaveAligner scores nucleotides only")
+        k = mesh.axis_names.index(axis)
+        devs = list(mesh.devices[:, 0] if k == 0 else mesh.devices[0, :])
+        n = len(pairs)
+        per = -(-n // len(devs))
+        launched = []
+        for d, dev in enumerate(devs):
+            lo = d * per
+            block = pairs[lo:lo + per]
+            if len(block) == 0:
+                continue
+            for sl, *res in self._launch(block, band_radius, dev,
+                                         self.gp.to(dev)):
+                launched.append((slice(lo + sl.start, lo + sl.stop), *res))
+        return self._collect(n, launched)
 
 
 def native_nw_band(pairs: Sequence, band_radius: int, ap

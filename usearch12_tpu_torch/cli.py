@@ -14,7 +14,10 @@ pairs populate the option registry.
 Every command writes the bytes that the JAX package's CLI writes, with
 every option of that CLI: -mesh DATAxDB (usearch_global, cluster_mt) runs
 on a mesh of cards, or of CPU entries when the caller passes the CPU, and
--xprof DIR writes a torch.profiler Chrome trace of the command into DIR.
+-xprof DIR writes a torch.profiler Chrome trace of the command into DIR,
+which holds usearch_global's stage ranges (usearch.request, .parse, .rank,
+.rank_prepare, .rank_finish, .round, .chain, .holes, .replay, .emit, .save;
+obs.py) on the clock of the card's kernels.
 torch is imported only by the paths that run on the card in this process
 and by -xprof, so a host command starts as fast as in the JAX package.
 When the caller passes no device, usearch_global's and sintax's card work
@@ -103,7 +106,8 @@ def parse_argv(argv: List[str]):
 
 def _profiler(device: DeviceLike):
     """torch.profiler over the whole command for -xprof DIR, started; CUDA
-    activity too unless the caller passed the CPU or there is no card."""
+    activity too unless the caller passed the CPU or there is no card.
+    The program's stages enter their usearch.* ranges while it records."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]

@@ -30,6 +30,16 @@ every hole runs in the host C kernel.  Holes whose band is wider than
 BW_DEV_MAX, and batches the dispatch gate keeps on the host, run in the
 host C kernel too, and the cells of each are counted in dev_stats.  torch
 is imported only when the device is a torch.device.
+
+dev_stats also holds the stages of every run_file call (STAGES: the
+request, the parse, the rank, each candidate round and its chain, holes
+and replay, the emit, the save of the run's records), each as <stage>_ns
+(host clock) and <stage>_n (obs.span; round_n counts the rounds), the
+counts queries and pairs (candidate pairs chained), and, with a rank
+override, its ranker's stages (ops/csr_host.py).  The USEARCH_DEVICE_STATS
+line that run_file appends carries them all.  While torch.profiler
+records (-xprof, a benchmark's traced window) each stage is also a
+"usearch.<stage>" range of the trace, nested under the ranges around it.
 """
 
 from __future__ import annotations
@@ -50,7 +60,7 @@ from ..search.terminator import Terminator
 from ..search.driver import fast_loop_eligible
 from ..align.result import AlignResult
 from ..native import GapParams, get_lib
-from .. import progress
+from .. import obs, progress
 
 _STAT_FIELDS = ("first_m_col", "last_m_col", "first_m_qpos",
                 "first_m_tpos", "last_m_qpos", "last_m_tpos")
@@ -66,6 +76,12 @@ COLD_UP_BW = 8.4e9       # bytes/s, pageable host memory to the card
 COLD_DN_BW = 2.3e9       # bytes/s, the card to pageable host memory
 COLD_DEV_RATE = 4.3e9    # cells/s, the slice's hole DP, host work included
 COLD_WARM_TAX = 0.21     # s, first dispatch of a process over the second
+# the stages a run_file call spans (dev_stats "<stage>_ns", "<stage>_n";
+# "usearch.<stage>" ranges while torch.profiler records): the request
+# holds the others; a round, each candidate round, holds its chain, holes
+# and replay
+STAGES = ("request", "parse", "rank", "round", "chain", "holes", "replay",
+          "emit", "save")
 
 
 class DevicePerfModel:
@@ -407,10 +423,18 @@ class BatchEngine:
         self.perf = None
         self._windows_left = 1
         # rank_device_jobs: jobs ranked by a rank_override (the card's CSR
-        # ranker); rank_host_rerank_jobs: those of them it left to the host
+        # ranker); rank_host_rerank_jobs: those of them it left to the host;
+        # the stages' spans (<stage>_ns, <stage>_n: obs.span) and the
+        # candidate loop's counts; a rank override adds its ranker's
         self.dev_stats = {"dispatches": 0, "device_cells": 0,
                           "host_cells": 0, "rank_device_jobs": 0,
-                          "rank_host_rerank_jobs": 0}
+                          "rank_host_rerank_jobs": 0,
+                          "queries": 0, "pairs": 0}
+        for k in STAGES:
+            self.dev_stats[k + "_ns"] = self.dev_stats[k + "_n"] = 0
+        # run_file's: whether torch.profiler records it, and its number
+        self.trace = False
+        self.seq = 0
         # adaptive gating on the card (in this process or the server's:
         # the factory's device); the CPU (the kernels' plain versions,
         # for tests) uses -dev_batch_cells
@@ -765,11 +789,16 @@ class BatchEngine:
         ranking stage (ops/csr_rank.py's ranker on the card)."""
         sc = sc or self._sc
         n_jobs = len(j_off) - 1
-        if rank_override is not None:
-            cand, cnts, out_n = rank_override(jbuf, j_off)
-            self.dev_stats["rank_device_jobs"] += n_jobs
-        else:
-            cand, cnts, out_n = self._rank_jobs(jbuf, j_off, sc)
+        # this window's counts, added to dev_stats at its end (windows
+        # run on threads)
+        st = {}
+        tr, seq = self.trace, self.seq
+        with obs.span(st, "rank", tr, seq):
+            if rank_override is not None:
+                cand, cnts, out_n = rank_override(jbuf, j_off)
+                st["rank_device_jobs"] = n_jobs
+            else:
+                cand, cnts, out_n = self._rank_jobs(jbuf, j_off, sc)
         job_state = np.zeros((n_jobs, 3), np.int32)
         ptr = np.zeros(n_jobs, np.int32)
         depth = 1
@@ -777,37 +806,48 @@ class BatchEngine:
             live = np.nonzero((job_state[:, 2] == 0) & (ptr < out_n))[0]
             if len(live) == 0:
                 break
-            take = np.minimum(out_n[live] - ptr[live], depth)
-            pair_j = np.repeat(live, take).astype(np.int32)
-            # candidate indexes ptr[j] .. ptr[j]+take-1 per job
-            csum = np.concatenate(([0], np.cumsum(take)))
-            within = np.arange(csum[-1]) - np.repeat(csum[:-1], take)
-            pair_k = np.repeat(ptr[live], take) + within
-            pair_t = np.ascontiguousarray(cand[pair_j, pair_k])
-            status, pair_seg_off, n_hole = self._chain_round(
-                sc, jbuf, j_off, pair_j, pair_t)
-            hole_paths, hole_off = self._align_holes(sc, jbuf, n_hole)
-            (hit_job, hit_tix, hit_paths, hit_path_off, hit_stats,
-             out_used) = self._finish_round(
-                sc, jbuf, j_off, pair_j, pair_t, status, pair_seg_off,
-                hole_paths, hole_off, job_state)
-            ptr[live] += take
-            if collect_round is not None:
-                if len(hit_job):
-                    collect_round(hit_job, hit_tix, hit_paths,
-                                  hit_path_off, hit_stats)
-            elif len(hit_job):
-                jobs_l = hit_job.tolist()
-                tix_l = hit_tix.tolist()
-                offs_l = hit_path_off.tolist()
-                stats_l = hit_stats.tolist()   # python ints: cheap emit
-                pb = hit_paths[:offs_l[-1]].tobytes()
-                for k in range(len(jobs_l)):
-                    collect_hits(jobs_l[k], tix_l[k],
-                                 pb[offs_l[k]:offs_l[k + 1]], stats_l[k])
-            if self.device is not None:
-                depth = min(depth * 2, 8)   # fewer device round trips
-            # no device: depth stays 1 (zero speculation waste)
+            with obs.span(st, "round", tr, seq):
+                take = np.minimum(out_n[live] - ptr[live], depth)
+                pair_j = np.repeat(live, take).astype(np.int32)
+                # candidate indexes ptr[j] .. ptr[j]+take-1 per job
+                csum = np.concatenate(([0], np.cumsum(take)))
+                within = np.arange(csum[-1]) - np.repeat(csum[:-1], take)
+                pair_k = np.repeat(ptr[live], take) + within
+                pair_t = np.ascontiguousarray(cand[pair_j, pair_k])
+                obs.add(st, "pairs", len(pair_j))
+                with obs.span(st, "chain", tr, seq):
+                    status, pair_seg_off, n_hole = self._chain_round(
+                        sc, jbuf, j_off, pair_j, pair_t)
+                if n_hole:
+                    with obs.span(st, "holes", tr, seq):
+                        hole_paths, hole_off = self._align_holes(sc, jbuf,
+                                                                 n_hole)
+                else:
+                    hole_paths, hole_off = self._align_holes(sc, jbuf, 0)
+                with obs.span(st, "replay", tr, seq):
+                    (hit_job, hit_tix, hit_paths, hit_path_off, hit_stats,
+                     out_used) = self._finish_round(
+                        sc, jbuf, j_off, pair_j, pair_t, status, pair_seg_off,
+                        hole_paths, hole_off, job_state)
+                ptr[live] += take
+                if collect_round is not None:
+                    if len(hit_job):
+                        collect_round(hit_job, hit_tix, hit_paths,
+                                      hit_path_off, hit_stats)
+                elif len(hit_job):
+                    jobs_l = hit_job.tolist()
+                    tix_l = hit_tix.tolist()
+                    offs_l = hit_path_off.tolist()
+                    stats_l = hit_stats.tolist()   # python ints: cheap emit
+                    pb = hit_paths[:offs_l[-1]].tobytes()
+                    for k in range(len(jobs_l)):
+                        collect_hits(jobs_l[k], tix_l[k],
+                                     pb[offs_l[k]:offs_l[k + 1]], stats_l[k])
+                if self.device is not None:
+                    depth = min(depth * 2, 8)   # fewer device round trips
+                # no device: depth stays 1 (zero speculation waste)
+        with self._lock:
+            obs.merge(self.dev_stats, st)
 
     # -- file driver -----------------------------------------------------
     def run_file(self, query_path: str, on_query_done: Callable,
@@ -821,7 +861,49 @@ class BatchEngine:
         fast_emit(win, rec_lo, rec_hi, per_rec_hits) instead of building
         AlignResult objects.  rank_override: see search_window; the
         windows then run one after another.  records: the (lo, hi) range
-        of the file's records to search (default: all)."""
+        of the file's records to search (default: all).
+
+        The call's stages add their spans to dev_stats (STAGES), and
+        with queries (records searched) and pairs (candidate pairs
+        chained) the USEARCH_DEVICE_STATS line carries them."""
+        from .. import runlog
+        self.seq += 1
+        self.trace = tr = obs.profiling()
+        st = {}
+        with obs.span(st, "request", tr, self.seq):
+            n = self._search_file(st, query_path, on_query_done, window,
+                                  fast_emit, rank_override, records)
+            with obs.span(st, "save", tr, self.seq):
+                runlog.note_index(self.index)
+                ds = self.dev_stats
+                runlog.note(
+                    f"Search: {n} queries, window {window}, "
+                    f"device {'on' if self.device is not None else 'off'}"
+                    f" ({ds['dispatches']} dispatches, "
+                    f"{ds['device_cells']} device cells, "
+                    f"{ds['host_cells']} host cells)")
+                if self.perf is not None:
+                    self.perf.save()
+        with self._lock:
+            obs.merge(self.dev_stats, st)
+        stats_path = os.environ.get("USEARCH_DEVICE_STATS")
+        if stats_path:
+            import json
+            with open(stats_path, "a") as f:
+                f.write(json.dumps({
+                    "device": self.device is not None,
+                    "server": getattr(self.device, "is_server", False),
+                    **self.dev_stats,
+                    "host_rate": None if self.perf is None
+                    else round(self.perf.host_rate),
+                    "dev_rate": None if self.perf is None
+                    else round(self.perf.dev_rate)}) + "\n")
+
+    def _search_file(self, st, query_path, on_query_done, window, fast_emit,
+                     rank_override, records) -> int:
+        """run_file's search, its spans and counts in st; returns the
+        file's record count."""
+        tr, seq = self.trace, self.seq
         o = options()
         strand_both = False
         if self.nucleo:
@@ -833,7 +915,8 @@ class BatchEngine:
                 strand_both = True
             elif s != "plus":
                 raise SystemExit("Invalid -strand, must be plus or both")
-        win = _FastaWindows(query_path)
+        with obs.span(st, "parse", tr, seq):
+            win = _FastaWindows(query_path)
         n = win.n
         # long sequences are the hole DP's workload: the factory's device
         # starts now, beside the host stages, not at the first dispatch
@@ -864,6 +947,7 @@ class BatchEngine:
             return raw.decode("latin1")
 
         r_lo, r_hi = records if records is not None else (0, n)
+        obs.add(st, "queries", r_hi - r_lo)
         n_windows = max(1, (r_hi - r_lo + window - 1) // window)
         soff = win.seq_off
 
@@ -889,7 +973,11 @@ class BatchEngine:
             """All C/DP work for one window — thread-safe given a
             thread-private scratch; emission happens separately so
             output order stays deterministic under any thread count."""
-            jbuf, j_off, jobs_per_rec = build_window(lo, hi)
+            wst = {}
+            with obs.span(wst, "parse", tr, seq):
+                jbuf, j_off, jobs_per_rec = build_window(lo, hi)
+            with self._lock:
+                obs.merge(self.dev_stats, wst)
             if packed_em is not None:
                 rounds = []
 
@@ -969,35 +1057,18 @@ class BatchEngine:
             self._windows_left = n_windows
             with cf.ThreadPoolExecutor(max_workers=n_threads) as ex:
                 for (lo, hi), res in zip(bounds, ex.map(work, bounds)):
-                    emit_window(lo, hi, res)
+                    with obs.span(st, "emit", tr, seq):
+                        emit_window(lo, hi, res)
         else:
             for wi, (lo, hi) in enumerate(bounds):
                 self._windows_left = n_windows - wi
-                emit_window(lo, hi, compute_window(lo, hi, self._sc))
+                res = compute_window(lo, hi, self._sc)
+                with obs.span(st, "emit", tr, seq):
+                    emit_window(lo, hi, res)
         progress.done(f"{n} queries")
         if self._factory_thread is not None:
             self._factory_thread.join()
-        from .. import runlog
-        runlog.note_index(self.index)
-        ds = self.dev_stats
-        runlog.note(f"Search: {n} queries, window {window}, "
-                    f"device {'on' if self.device is not None else 'off'}"
-                    f" ({ds['dispatches']} dispatches, "
-                    f"{ds['device_cells']} device cells, "
-                    f"{ds['host_cells']} host cells)")
-        if self.perf is not None:
-            self.perf.save()
-        stats_path = os.environ.get("USEARCH_DEVICE_STATS")
-        if stats_path:
-            import json
-            with open(stats_path, "a") as f:
-                f.write(json.dumps({
-                    "device": self.device is not None,
-                    "server": getattr(self.device, "is_server", False), **ds,
-                    "host_rate": None if self.perf is None
-                    else round(self.perf.host_rate),
-                    "dev_rate": None if self.perf is None
-                    else round(self.perf.dev_rate)}) + "\n")
+        return n
 
     def _make_ar(self, label, qseq, tix, path, stats, is_rc):
         db = self.db

@@ -26,7 +26,6 @@
 #include <stdio.h>
 #include <stdlib.h>
 #include <string.h>
-#include <time.h>
 #include <math.h>
 #include <unistd.h>
 
@@ -900,10 +899,6 @@ static int64_t compress_path(const char *path, int64_t n, char *out)
     return o;
 }
 
-static double t_walk, t_delta, t_scan, t_sort;
-#define RNOW() ({ struct timespec ts; clock_gettime(CLOCK_MONOTONIC, &ts); \
-                  ts.tv_sec + 1e-9 * ts.tv_nsec; })
-
 /* walk + delta-tail + SetTopBump scan over a UTYPE-wide count array
  * (single uint16_t instantiation: a uint8_t tier measured ~4% slower
  * end-to-end — byte RMW increments don't pay for the halved traffic
@@ -913,9 +908,8 @@ static double t_walk, t_delta, t_scan, t_sort;
 #define DEFINE_CC_RANK_CORE(SUFFIX, UTYPE)                                  \
 static uint32_t cc_rank_core_##SUFFIX(                                      \
     ClusterCtx *cc, UTYPE *restrict u, uint32_t nuw, uint32_t seq_count,    \
-    uint32_t bump_pct, uint32_t *maxv_io, uint32_t *nextv_io, int subt)     \
+    uint32_t bump_pct, uint32_t *maxv_io, uint32_t *nextv_io)               \
 {                                                                           \
-    double rt0 = subt ? RNOW() : 0;                                         \
     /* restrict everywhere: UTYPE=uint8_t otherwise aliases every other */  \
     /* byte array, forcing bound reloads inside the walk loops */           \
     const int64_t *restrict bs = cc->base_starts;                           \
@@ -949,7 +943,6 @@ static uint32_t cc_rank_core_##SUFFIX(                                      \
         for (int64_t p = ms[w]; p < ms[w + 1]; ++p)                         \
             ++u[mp[p]];                                                     \
     }                                                                       \
-    if (subt) { t_walk += RNOW() - rt0; rt0 = RNOW(); }                     \
     /* raw tail: bitmap scan */                                             \
     {                                                                       \
         const int64_t *restrict dw = cc->dw;                                \
@@ -964,7 +957,6 @@ static uint32_t cc_rank_core_##SUFFIX(                                      \
     }                                                                       \
     for (uint32_t k = 0; k < nuw; ++k)                                      \
         cc->seen[uw[k] >> 3] = 0;                                           \
-    if (subt) { t_delta += RNOW() - rt0; rt0 = RNOW(); }                    \
     /* SetTopBump: index-order scan with fused clear, blocked so the    */  \
     /* common no-op block (max below cur_min AND not exceeding the      */  \
     /* running max) is skipped after one vectorizable max-reduction.    */  \
@@ -1049,7 +1041,6 @@ static uint32_t cc_rank_core_##SUFFIX(                                      \
             t0b = endb;                                                     \
         }                                                                   \
     }                                                                       \
-    if (subt) t_scan += RNOW() - rt0;                                       \
     *maxv_io = maxv;                                                        \
     *nextv_io = nextv;                                                      \
     return n_cand;                                                          \
@@ -1096,20 +1087,13 @@ static uint32_t cc_rank(
         }
     }
     *n_uw_out = nuw;
-    static int subt = -1;
-    if (subt < 0)
-        subt = getenv("USEARCH_RANK_TIMING") != NULL;
     /* maxv/nextv track the count-sort's prefix-record NextValue while
      * emitting (saves a second pass over the candidate list) */
     uint32_t n_cand, maxv = 0, nextv = 0;
     n_cand = cc_rank_core_u16(cc, cc->u, nuw, seq_count, bump_pct,
-                              &maxv, &nextv, subt);
-    double rt0 = subt ? RNOW() : 0;
+                              &maxv, &nextv);
     uint32_t *out_tix = cc->cand_tix, *out_counts = cc->cand_cnt;
     uint32_t *hist = cc->hist;
-    if (subt && getenv("USEARCH_RANK_PRINT"))
-        fprintf(stderr, "RANK walk=%.2f delta=%.2f scan=%.2f sort=%.2f\n",
-                t_walk, t_delta, t_scan, t_sort);
     if (n_cand == 0)
         return 0;
     /* CountSortOrderDesc: stable desc with NextValue/2 cutoff
@@ -1151,7 +1135,6 @@ static uint32_t cc_rank(
     /* restore hist to all-zero for the next call (every filled bucket
      * is <= maxv; buckets in [c_star, maxv] hold placement offsets) */
     memset(hist, 0, (maxv + 1) * sizeof(uint32_t));
-    if (subt) t_sort += RNOW() - rt0;
     return n_emit;
 }
 
@@ -1587,11 +1570,6 @@ int64_t cluster_greedy_c(
     int jobs_per = strand_both ? 2 : 1;
     int64_t n_hits = inout_counters[0];
     int64_t cpos = inout_counters[1];
-    static double t_rank, t_align, t_admit;
-    static int64_t n_rank, n_align, n_admit;
-    int timing = getenv("USEARCH_CLUSTER_TIMING") != NULL;
-#define TNOW() ({ struct timespec ts; clock_gettime(CLOCK_MONOTONIC, &ts); \
-                  ts.tv_sec + 1e-9 * ts.tv_nsec; })
     cc_index_init(cc, slot_count);
     for (int64_t q = start_q; q < n_queries; ++q) {
         int64_t q_len0 = q_off[q * jobs_per + 1] - q_off[q * jobs_per];
@@ -1610,16 +1588,13 @@ int64_t cluster_greedy_c(
             const uint8_t *seq = qbuf + q_off[j];
             int64_t L = q_off[j + 1] - q_off[j];
             uint32_t nuw = 0;
-            double t0 = timing ? TNOW() : 0;
             uint32_t max_emit = (maxaccepts > 0 && maxrejects > 0)
                 ? (uint32_t)(maxaccepts + maxrejects) : 0;
             uint32_t n_cand = cc_rank(
                 cc, seq, L, ctl_rank, alpha_size, wlen, slot_count,
                 (uint32_t)cc->db_n, bump_pct, max_emit, &nuw);
-            if (timing) { t_rank += TNOW() - t0; ++n_rank; }
             if (n_cand == 0)
                 continue;
-            t0 = timing ? TNOW() : 0;
             hsp_set_a(hf, seq, (uint32_t)L);
             int32_t acc = 0, rej = 0;
             for (uint32_t k = 0; k < n_cand; ++k) {
@@ -1674,7 +1649,6 @@ int64_t cluster_greedy_c(
                         break;
                 }
             }
-            if (timing) { t_align += TNOW() - t0; n_align += n_cand; }
         }
         /* top hit: strict > on float32 fract-id, tie -> lowest tix
          * (HitMgr::GetTopHit) */
@@ -1765,11 +1739,6 @@ int64_t cluster_greedy_c(
         inout_counters[0] = n_hits;
         inout_counters[1] = cpos;
     }
-    if (timing)
-        fprintf(stderr,
-                "CLUSTER_TIMING rank=%.2fs(%lld) align=%.2fs(%lld cands) "
-                "admit=%.2fs(%lld)\n", t_rank, (long long)n_rank, t_align,
-                (long long)n_align, t_admit, (long long)n_admit);
     return n_queries;
 }
 
@@ -3203,11 +3172,6 @@ int64_t unoise_greedy_c(
     int32_t *out_ti, int32_t *out_diffs)
 {
     const int MAX_HOT_C = 8, MAX_DROP_C = 8;
-    /* USEARCH_PROF=1: per-phase wall time on stderr (rank vs align) */
-    int prof = getenv("USEARCH_PROF") != NULL;
-    double t_rank = 0.0, t_align = 0.0;
-    int64_t n_aligns = 0;
-    struct timespec ts0, ts1;
     cc_index_init(cc, slot_count);
     int64_t *cent_size = (int64_t *)malloc(
         (size_t)n_queries * sizeof(int64_t));
@@ -3216,16 +3180,9 @@ int64_t unoise_greedy_c(
         const uint8_t *seq = qbuf + q_off[q];
         int64_t L = q_off[q + 1] - q_off[q];
         uint32_t nuw = 0;
-        if (prof)
-            clock_gettime(CLOCK_MONOTONIC, &ts0);
         uint32_t n_cand = cc_rank(cc, seq, L, ctl_rank, alpha_size,
                                   wlen, slot_count, (uint32_t)cc->db_n,
                                   bump_pct, MAX_HOT_C, &nuw);
-        if (prof) {
-            clock_gettime(CLOCK_MONOTONIC, &ts1);
-            t_rank += (double)(ts1.tv_sec - ts0.tv_sec)
-                + 1e-9 * (double)(ts1.tv_nsec - ts0.tv_nsec);
-        }
         int32_t best_t = -1, best_diffs = -1;
         if (n_cand) {
             hsp_set_a(hf, seq, (uint32_t)L);
@@ -3247,18 +3204,10 @@ int64_t unoise_greedy_c(
                     es->path = (char *)malloc(es->path_cap);
                 }
                 float fr = 0.0f;
-                if (prof)
-                    clock_gettime(CLOCK_MONOTONIC, &ts0);
                 int n = global_align_c(hf, as, gp, match_mx, band_radius,
                                        min_hsp_len, min_hsp_fract,
                                        min_hsp_score, xdrop_g, 0, 1,
                                        es->path, &fr);
-                if (prof) {
-                    clock_gettime(CLOCK_MONOTONIC, &ts1);
-                    t_align += (double)(ts1.tv_sec - ts0.tv_sec)
-                        + 1e-9 * (double)(ts1.tv_nsec - ts0.tv_nsec);
-                    ++n_aligns;
-                }
                 if (n > 0) {
                     /* mismatch diffs over M columns */
                     int64_t qi = 0, tj = 0, diffs = 0;
@@ -3369,12 +3318,6 @@ int64_t unoise_greedy_c(
                 cc_flush_raw(cc);
         }
     }
-    if (prof)
-        fprintf(stderr,
-                "unoise_greedy_c: rank %.3fs align %.3fs (%lld aligns, "
-                "%lld queries, %lld centroids)\n",
-                t_rank, t_align, (long long)n_aligns,
-                (long long)n_queries, (long long)n_cent);
     free(cent_size);
     return n_cent;
 }

@@ -9,6 +9,13 @@ torch device in this process, CSRServerRanker hands it to the resident
 server (device_server.py), whose process keeps the CSR arrays on the card
 across command runs.  The semantics on each side of -big are
 ops/csr_rank.py's.
+
+A ranker counts its stages in `stats` (obs.span): rank_prepare_ns/_n
+(prepare_chunks), rank_finish_ns/_n (_finish and the override's host
+re-rank), rank_device_ns/_n (a chunk's upload to its top K, where the
+subclass times it), rank_chunks and rank_hit_slots (chunk rows times the
+hit stream's padded length); the engine's override adds them into
+BatchEngine.dev_stats after each window.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ from typing import Optional
 
 import numpy as np
 
+from .. import obs
 from ..config import options
 from ..search.terminator import Terminator
 from ..search.usorted import big_query_step
@@ -38,6 +46,8 @@ class CSRRanker:
         self.topk = topk
         self.bump = int(o.uns("bump")) if bump is None else bump
         self.chunk_b = chunk_b
+        self.stats = {}
+        self._trace = False
         self.t = index.seq_count
         params = index.params
         self._params = params
@@ -101,13 +111,18 @@ class CSRRanker:
         """One chunk -> host (cnts, targets, nextv)."""
         raise NotImplementedError
 
-    def rank_window(self, jbuf: np.ndarray, j_off: np.ndarray):
+    def rank_window(self, jbuf: np.ndarray, j_off: np.ndarray,
+                    trace: bool = False, seq: Optional[int] = None):
         """-> (cand (n_jobs, K) int64, cnts uint32, out_n int32, uncertain
         bool), the JAX ranker's contract: each job's first out_n
         candidates are its ranked list (cut at K), cand T where the count
         is 0; uncertain jobs (over CAP_MAX hits) need the host's
-        ranking."""
-        n_jobs, chunks, over = self.prepare_chunks(jbuf, j_off)
+        ranking.  trace: torch.profiler records (the stages' ranges, the
+        card's timer), seq: the request's number."""
+        st = self.stats
+        self._trace = trace
+        with obs.span(st, "rank_prepare", trace, seq):
+            n_jobs, chunks, over = self.prepare_chunks(jbuf, j_off)
         K = self.topk
         cnts = np.zeros((n_jobs, K), dtype=np.int64)
         cand = np.full((n_jobs, K), self.t, dtype=np.int64)
@@ -117,7 +132,10 @@ class CSRRanker:
             cnts[lo:hi] = c_n[:hi - lo]
             cand[lo:hi] = t_n[:hi - lo]
             nextv[lo:hi] = n_n[:hi - lo]
-        out = self._finish(cand, cnts, nextv)
+            obs.add(st, "rank_hit_slots", qw.shape[0] * cap)
+        obs.add(st, "rank_chunks", len(chunks))
+        with obs.span(st, "rank_finish", trace, seq):
+            out = self._finish(cand, cnts, nextv)
         out[3][over] = True
         return out
 
@@ -161,23 +179,30 @@ def make_engine_override(ranker: CSRRanker, eng):
     """rank_override for BatchEngine.search_window: the window ranked by
     `ranker` (on the card, in this process or the server's); only its
     uncertain jobs are ranked again on the host (counted in
-    eng.dev_stats["rank_host_rerank_jobs"]).  A failure of the device or
-    the server raises."""
+    eng.dev_stats["rank_host_rerank_jobs"]).  The ranker's stats of the
+    window are added into eng.dev_stats.  A failure of the device or the
+    server raises."""
     def override(jbuf, j_off):
-        cand, cnts, out_n, unc = ranker.rank_window(jbuf, j_off)
+        st = ranker.stats
+        before = dict(st)
+        cand, cnts, out_n, unc = ranker.rank_window(jbuf, j_off, eng.trace,
+                                                    eng.seq)
         redo = np.nonzero(unc)[0]
         if len(redo):
-            parts = [jbuf[j_off[j]:j_off[j + 1]] for j in redo]
-            sub_off = np.zeros(len(redo) + 1, np.int64)
-            np.cumsum([len(x) for x in parts], out=sub_off[1:])
-            h_cand, h_cnts, h_out_n = eng._rank_jobs(
-                np.ascontiguousarray(np.concatenate(parts)), sub_off)
-            for r, j in enumerate(redo):
-                k = min(int(h_out_n[r]), cand.shape[1])
-                cand[j, :k] = h_cand[r, :k]
-                cnts[j, :k] = h_cnts[r, :k]
-                out_n[j] = k
+            with obs.span(st, "rank_finish", eng.trace, eng.seq):
+                parts = [jbuf[j_off[j]:j_off[j + 1]] for j in redo]
+                sub_off = np.zeros(len(redo) + 1, np.int64)
+                np.cumsum([len(x) for x in parts], out=sub_off[1:])
+                h_cand, h_cnts, h_out_n = eng._rank_jobs(
+                    np.ascontiguousarray(np.concatenate(parts)), sub_off)
+                for r, j in enumerate(redo):
+                    k = min(int(h_out_n[r]), cand.shape[1])
+                    cand[j, :k] = h_cand[r, :k]
+                    cnts[j, :k] = h_cnts[r, :k]
+                    out_n[j] = k
             eng.dev_stats["rank_host_rerank_jobs"] += len(redo)
+        for k, v in st.items():
+            obs.add(eng.dev_stats, k, v - before.get(k, 0))
         return (np.ascontiguousarray(cand.astype(np.uint32)),
                 np.ascontiguousarray(cnts), out_n)
     return override

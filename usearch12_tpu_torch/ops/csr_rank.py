@@ -37,6 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import obs
 from .csr_host import CSRRanker, make_engine_override  # noqa: F401
 
 
@@ -59,6 +60,8 @@ class CSRDeviceRanker(CSRRanker):
         process makes."""
         self = cls.__new__(cls)
         self.index = None
+        self.stats = {}
+        self._trace = False
         self.t, self.topk, self.bump, self.big = t, topk, bump, big
         self._put(torch.device(device), starts, sizes, postings)
         return self
@@ -162,7 +165,11 @@ class CSRDeviceRanker(CSRRanker):
         return nc, torch.where(nc > 0, topi, self.t)
 
     def run_chunk(self, qw: np.ndarray, cap: int):
-        """One chunk on the device -> host (cnts, targets, nextv)."""
+        """One chunk on the device -> host (cnts, targets, nextv); its
+        upload to its top K timed into stats["rank_device_ns"] (on a CUDA
+        device only while the window is traced)."""
+        timer = obs.DeviceTimer(self.device, self._trace)
+        timer.start()
         q = torch.from_numpy(qw).to(self.device)
         hits = self.hits(q, cap)
         count = self.counts(hits)
@@ -170,5 +177,10 @@ class CSRDeviceRanker(CSRRanker):
             nc, nt, nextv = self.rank_big(count, hits)
         else:
             nc, nt, nextv = self.rank_sorted(count)
+        timer.stop()
         out = torch.stack([nc, nt], 0).cpu().numpy()
+        ns = timer.ns()
+        if ns is not None:
+            obs.add(self.stats, "rank_device_ns", ns)
+            obs.add(self.stats, "rank_device_n", 1)
         return out[0], out[1], nextv.cpu().numpy()

@@ -32,6 +32,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .. import obs
 from ..cluster.uclust import MtCentroids, _uc_hit_line
 from ..config import options
 from ..index.udb import UDBIndex
@@ -139,10 +140,9 @@ class DeviceUCounter:
         words = [index.params.unique_words(x) for x in seqs]
         out = np.zeros((len(seqs), t), np.uint32)
         per = -(-len(seqs) // n_data)
-        if self._timed:
-            stream = torch.cuda.current_stream(mesh.devices[0, 0])
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record(stream)
+        timer = obs.DeviceTimer(mesh.devices[0, 0]) if self._timed else None
+        if timer is not None:
+            timer.start()
         parts = []
         for i in range(n_data):
             lo, hi = i * per, min((i + 1) * per, len(seqs))
@@ -161,12 +161,12 @@ class DeviceUCounter:
                 u = incidence.int8_mm(q[dev], self._shard_of(i, j)[:n_j])
                 m = min(n_j, t - j * s)
                 parts.append((lo, hi, j * s, m, u[:hi - lo, :m]))
-        if self._timed:
-            ev[1].record(stream)
+        if timer is not None:
+            timer.stop()
         for lo, hi, c0, m, u in parts:
             out[lo:hi, c0:c0 + m] = u.cpu().numpy()
-        if self._timed:
-            self.stats["count_ms"] += ev[0].elapsed_time(ev[1])
+        if timer is not None:
+            self.stats["count_ms"] += timer.ns() / 1e6
         self.stats["windows"] += 1
         return out
 

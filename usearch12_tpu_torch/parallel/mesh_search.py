@@ -164,13 +164,21 @@ class MeshRanker:
         return top_keys, self.next_value(top_keys, pms)
 
     # -- windows ---------------------------------------------------------
-    def rank_window(self, jbuf: np.ndarray, j_off: np.ndarray):
+    @property
+    def stats(self) -> dict:
+        """The stage counts of the CSR ranker above -big (ops/csr_host.py);
+        none below it."""
+        return self._csr.stats if self._csr is not None else {}
+
+    def rank_window(self, jbuf: np.ndarray, j_off: np.ndarray,
+                    trace: bool = False, seq: Optional[int] = None):
         """-> (cand (B, K) int64 global indexes, cnts (B, K) uint32, out_n
         (B,) int32, uncertain (B,) bool): each job's first out_n
-        candidates are its ranked list; uncertain jobs need the host's."""
+        candidates are its ranked list; uncertain jobs need the host's.
+        trace, seq: the CSR ranker's (above -big)."""
         if self._csr is not None:
             self.overhead["windows"] += 1
-            return self._csr.rank_window(jbuf, j_off)
+            return self._csr.rank_window(jbuf, j_off, trace, seq)
         params = self.index.params
         n_jobs = len(j_off) - 1
         words = [params.unique_words(jbuf[j_off[j]:j_off[j + 1]])

@@ -67,11 +67,18 @@ Phases, each printing a line, any failure exits non-zero:
      this process) against -no_device_rank (the host ranker, a process of
      its own) and both in this process, at the default -big
      (UDBSearchBig) and at -big 300000 (SetTopBump): blast6 bytes equal
-     and rank_device_jobs 2,000, or the run fails; the ranker's stages on
-     one chunk (hit stream, counts, ranking and top-K), each beside its
-     bound, torch.bincount alone, and the window's wall and device time
-     (torch.profiler); both rankers as fresh processes in turns host,
-     card, card, host, for the automatic gate;
+     and rank_device_jobs 2,000, or the run fails, and exactly one
+     launch of csr_rank_big (csrc/csr_rank.cu) a window in big mode; big
+     mode twice: at -id 0.97 (11 stepped words a query, ~9 k hits, every
+     table in shared memory: the route of the benchmark's gg99_v4 cells)
+     and at -id 0.9 (41 words, ~34 k hits, every table in device memory);
+     the ranker's stages on one chunk (hit stream, counts, ranking and
+     top-K; in big mode the main path's window of 512 jobs), each beside
+     its bound, torch.bincount alone, in big mode the kernel bit for bit
+     against the stages (its plain version) and timed beside its bound,
+     and the window's wall and device time (torch.profiler); both
+     rankers as fresh processes in turns host, card, card, host, for the
+     automatic gate (-id 0.9);
  10. mesh: (a) cluster_mt -mesh 1 (parallel/cluster_batch.py, the U
      counts on the card) through the port's command line in this process
      on bench.py's amplicon reads cut to 30,000 (400 templates of 250 nt,
@@ -1452,26 +1459,66 @@ def phase_sintax(d, dev, phase_done, other_hist=None):
     return sx, launches, {"db": dbf, "q": qf, "ref": ref_b}, boot
 
 
-def rank_stages(udb, qf, big_opts, dev):
+# jobs of the main path's window on the kernel route: a request of the
+# benchmark's gg99_v4 cells (benchmark/traffic/)
+RANK_WINDOW = 512
+
+
+def rank_kernel(ranker, qw, cap, q, n_pos, dev):
+    """csr_rank_big on one window (qw, cap) against its plain version
+    (rank_plain, the torch ops, on the card), bit for bit, each timed with
+    CUDA events, the kernel beside its bound.  Returns the numbers."""
+    import numpy as np
+    import torch
+    from usearch12_tpu_torch.ops.csr_rank import csr_rank_big
+    meta, spill_total, spills = ranker.kernel_meta(qw, cap)
+    m = torch.from_numpy(meta).to(dev)
+    kernel_ms, out = cuda_ms(lambda: csr_rank_big(
+        ranker._starts, ranker._sizes, ranker._postings, m, cap, ranker.t,
+        ranker.topk, spill_total), 10)
+    plain_ms, plain = cuda_ms(lambda: ranker.rank_plain(q, cap), 3)
+    K = ranker.topk
+    o = out.cpu().numpy().astype(np.int64)
+    want = np.concatenate([x.cpu().numpy().reshape(len(o), -1)
+                           for x in plain], 1)
+    n_diff = int((o != want).any(1).sum())
+    # bytes: each hit's posting read once (int32), each live word's start
+    # and size, the words up, the output rows written
+    n_words = int((qw != ranker._v).sum())
+    b = bound(4 * n_pos + 16 * n_words + nbytes_of(m, out), 0)
+    print(f"csr_rank_big: a window of {len(qw)} queries, {n_pos} hits (cap "
+          f"{cap}), {int(o[:, 2 * K + 1].sum())} targets touched, {spills} "
+          f"tables in device memory; kernel {kernel_ms:.4f} ms (bound "
+          f"{b[0]:.4f} ms by {b[1]}, {100 * b[0] / kernel_ms:.2f}%), plain "
+          f"version {plain_ms:.4f} ms; {n_diff} queries differ", flush=True)
+    if n_diff:
+        fail(f"csr_rank_big differs from its plain version on {n_diff} "
+             "queries")
+    return {"kernel_ms": kernel_ms, "kernel_plain_ms": plain_ms,
+            "kernel_bound": b, "kernel_spills": spills}
+
+
+def rank_stages(udb, qf, opts, dev):
     """The ranker's stages (ops/csr_rank.py) on the first chunk of the
-    workload's queries, each timed with CUDA events beside its bound, and
-    the whole ranking of the 2,000 queries profiled.  Returns the stage
-    times and bounds."""
+    workload's queries (in big mode the main path's window of RANK_WINDOW
+    jobs, with the kernel against them), each timed with CUDA events
+    beside its bound, and the whole ranking of the 2,000 queries
+    profiled.  Returns the stage times and bounds."""
     import numpy as np
     import torch
     from usearch12_tpu_torch import cli
     from usearch12_tpu_torch.commands import load_db
     from usearch12_tpu_torch.io.fastx import read_fastx
     from usearch12_tpu_torch.ops.csr_rank import CSRDeviceRanker
-    cli.parse_argv(["-usearch_global", qf, "-db", udb, "-id", "0.9",
-                    "-strand", "plus", "-quiet"] + big_opts)
+    cli.parse_argv(["-usearch_global", qf, "-db", udb, "-strand", "plus",
+                    "-quiet"] + opts)
     _db, index = load_db(udb)
     seqs = [s for _l, s, _q in read_fastx(qf, stream=True)]
     jbuf = np.ascontiguousarray(np.concatenate(seqs))
     j_off = np.zeros(len(seqs) + 1, np.int64)
     np.cumsum([len(x) for x in seqs], out=j_off[1:])
     ranker = CSRDeviceRanker(index, dev)
-    _n, chunks, _over = ranker.prepare_chunks(jbuf, j_off)
+    _n, chunks, _over = ranker.prepare_chunks(jbuf, j_off[:RANK_WINDOW + 1])
     _lo, _hi, qw, cap = chunks[0]
     q = torch.from_numpy(qw).to(dev)
     hits_ms, hits = cuda_ms(lambda: ranker.hits(q, cap), 10)
@@ -1493,12 +1540,16 @@ def rank_stages(udb, qf, big_opts, dev):
     b_count = bound(nbytes_of(hits, count), 0)
     b_rank = bound(nbytes_of(count) * (3 if ranker.big else 1)
                    + (nbytes_of(hits) if ranker.big else 0), 0)
+    del hits, count
+    kern = rank_kernel(ranker, qw, cap, q, n_pos, dev) if ranker.big else {}
+    torch.cuda.empty_cache()
     # the window's wall time with the ranker warm, then its device time
     # (a profiler's first session in a process takes seconds to start)
     t0 = time.perf_counter()
     ranker.rank_window(jbuf, j_off)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    n_chunks = len(ranker.prepare_chunks(jbuf, j_off)[1])
     prof = torch.profiler.profile(activities=[
         torch.profiler.ProfilerActivity.CPU,
         torch.profiler.ProfilerActivity.CUDA])
@@ -1520,13 +1571,14 @@ def rank_stages(udb, qf, big_opts, dev):
           f"{hits_ms:.4f} ms (bound {b_hits[0]:.4f}), counts {count_ms:.4f} "
           f"ms (bound {b_count[0]:.4f}; torch.bincount alone {lib_ms:.4f}), "
           f"rank and top-K {rank_ms:.4f} ms (bound {b_rank[0]:.4f}); the "
-          f"window of {len(seqs)} queries in {len(chunks)} chunks: "
+          f"window of {len(seqs)} queries in {n_chunks} chunks: "
           f"{wall:.3f} s wall, {device_ms:.3f} ms device, top {top}",
           flush=True)
     return {"hits_ms": hits_ms, "count_ms": count_ms, "rank_ms": rank_ms,
             "bincount_ms": lib_ms, "bounds": (b_hits[0], b_count[0],
                                               b_rank[0]),
-            "chunks": len(chunks), "device_ms": device_ms, "wall_s": wall}
+            "chunks": n_chunks, "device_ms": device_ms, "wall_s": wall,
+            **kern}
 
 
 def phase_rank(d, dev, phase_done):
@@ -1538,6 +1590,7 @@ def phase_rank(d, dev, phase_done):
     numbers."""
     import torch
     from usearch12_tpu_torch import cli
+    from usearch12_tpu_torch.ops.csr_rank import csr_rank_big
     t_phase = time.perf_counter()
     dbf, qf, udb = (os.path.join(d, x) for x in ("bigdb.fa", "bigq.fa",
                                                  "bigdb.udb"))
@@ -1550,11 +1603,13 @@ def phase_rank(d, dev, phase_done):
     print(f"rank: 220,000 targets x 2,000 queries of 250 nt written in "
           f"{t_gen:.1f} s, indexed in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    base = ["-usearch_global", qf, "-db", udb, "-id", "0.9", "-strand",
-            "plus", "-quiet"]
+    base = ["-usearch_global", qf, "-db", udb, "-strand", "plus", "-quiet"]
     stats = os.path.join(d, "rank_stats.jsonl")
     out = {}
-    for tag, big_opts in (("big", []), ("sorted", ["-big", "300000"])):
+    # big mode with every table on chip (the cells' route), then with
+    # every table in device memory; SetTopBump
+    for tag, big_opts in (("big97", ["-id", "0.97"]), ("big", ["-id", "0.9"]),
+                          ("sorted", ["-id", "0.9", "-big", "300000"])):
         ref, port, port_host = (os.path.join(d, f"rank_{tag}_{x}.b6")
                                 for x in ("host", "card", "card_host"))
         t0 = time.perf_counter()
@@ -1574,6 +1629,7 @@ def phase_rank(d, dev, phase_done):
                                          port_host], device=dev)
         t_host_in = time.perf_counter() - t0
         os.environ["USEARCH_DEVICE_STATS"] = stats
+        n0 = csr_rank_big.launches
         try:
             t0 = time.perf_counter()
             rc |= cli.main(base + big_opts + ["-device_rank", "-blast6out",
@@ -1606,8 +1662,22 @@ def phase_rank(d, dev, phase_done):
         if ds["rank_device_jobs"] != 2000:
             fail(f"rank {tag}: rank_device_jobs {ds['rank_device_jobs']}, "
                  "not the 2,000 jobs")
+        # one launch a window in big mode (none in SetTopBump); at -id
+        # 0.97 every table on chip, at 0.9 every one in device memory
+        launches = csr_rank_big.launches - n0
+        spills = ds.get("rank_spills", 0)
+        if launches != ds.get("rank_kernel_launches", 0) or launches != (
+                ds["rank_chunks"] if tag != "sorted" else 0):
+            fail(f"rank {tag}: {launches} launches of csr_rank_big for "
+                 f"{ds['rank_chunks']} windows")
+        if spills != {"big97": 0, "big": 2000, "sorted": 0}[tag]:
+            fail(f"rank {tag}: {spills} tables in device memory")
+        print(f"rank {tag}: {launches} launches of csr_rank_big for "
+              f"{ds['rank_chunks']} windows, {spills} tables in device "
+              "memory", flush=True)
         out[tag] = {"host_s": t_host, "host_in_s": t_host_in,
-                    "card_s": t_card, **rank_stages(udb, qf, big_opts, dev)}
+                    "card_s": t_card, "launches": launches,
+                    **rank_stages(udb, qf, big_opts, dev)}
         if tag == "big":
             # the automatic gate: both rankers as fresh processes, in the
             # turns host (the judge above), card, card, host
@@ -1616,7 +1686,7 @@ def phase_rank(d, dev, phase_done):
                 t0 = time.perf_counter()
                 r = subprocess.run(
                     [sys.executable, "-m", "usearch12_tpu_torch.cli"] + base
-                    + [flag, "-blast6out", port], cwd=HERE,
+                    + big_opts + [flag, "-blast6out", port], cwd=HERE,
                     capture_output=True, text=True, timeout=600)
                 gate[flag].append(time.perf_counter() - t0)
                 with open(port, "rb") as f:
@@ -2743,7 +2813,8 @@ def main():
 
     # 9. usearch_global's ranking on the card
     with phase_dir(work, "rank") as d:
-        rank_files = phase_rank(d, dev, phase_done)["files"]
+        rank = phase_rank(d, dev, phase_done)
+        rank_files = rank["files"]
         # 10. the mesh paths, on phase 9's files
         phase_mesh(d, dev, phase_done)
 
@@ -2800,7 +2871,12 @@ def main():
         row("sintax_boot_count_select", "sintax_boot.cu",
             "usearch12_tpu/amplicon/sintax_device.py:143",
             sx_launches["sintax_boot_count_select"], sx["select_err"],
-            sx["sel_ms"], sx["sel_plain_ms"], sx["sel_bound"])]}))
+            sx["sel_ms"], sx["sel_plain_ms"], sx["sel_bound"]),
+        row("csr_rank_big", "csr_rank.cu",
+            "usearch12_tpu/ops/csr_rank.py:105 (jnp stages)",
+            rank["big97"]["launches"], 0, rank["big97"]["kernel_ms"],
+            rank["big97"]["kernel_plain_ms"], rank["big97"]["kernel_bound"],
+            rank["big97"]["bincount_ms"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

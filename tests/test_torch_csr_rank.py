@@ -310,3 +310,125 @@ def test_device_rank_needs_a_card_unless_cpu_is_passed(ranked_db, tmp_path,
                        "-strand", "plus", "-quiet", "-no_engine_device",
                        "-device_rank", "-blast6out",
                        str(tmp_path / "x.b6")])
+
+
+@pytest.mark.parametrize("stepwords", ["0", "8"])
+@pytest.mark.parametrize("big", [None, "10"])
+def test_window_as_one_chunk_equals_chunks_of_64(big_db, big, stepwords):
+    """A window ranked as one chunk (chunk_b = WINDOW, the kernel route's
+    chunking) through the torch ops gives rank_window's output of chunks
+    of 64 queries, on both sides of -big."""
+    db_fa, q_fa = big_db
+    extra = (["-big", big] if big else []) + ["-stepwords", stepwords]
+    _db, index, _seqs, jbuf, j_off = _port_setup(db_fa, q_fa, extra)
+    window = csr_rank.CSRDeviceRanker(index, CPU,
+                                      chunk_b=csr_rank.CSRRanker.WINDOW)
+    n_jobs, chunks, _over = window.prepare_chunks(jbuf, j_off)
+    assert len(chunks) == 1 and chunks[0][2].shape[0] == n_jobs == 100
+    got = window.rank_window(jbuf, j_off)
+    chunked = csr_rank.CSRDeviceRanker(index, CPU, chunk_b=64)
+    assert chunked.chunk_b == 64 and window.big == (big is not None)
+    want = chunked.rank_window(jbuf, j_off)
+    for name, x, y in zip(("cand", "cnts", "out_n", "uncertain"), got, want):
+        assert x.dtype == y.dtype and np.array_equal(x, y), name
+    assert window.stats["rank_chunks"] == 1
+    assert chunked.stats["rank_chunks"] == 2
+
+
+def _hit_streams(ranker, jbuf, j_off):
+    """Each job's hit stream in numpy: its words' posting rows end to
+    end, as prepare_chunks picks the words."""
+    starts, sizes, post = ranker.csr_arrays()
+    _n, chunks, _over = ranker.prepare_chunks(jbuf, j_off)
+    out = []
+    for lo, hi, qw, _cap in chunks:
+        for row in qw[:hi - lo]:
+            out.append(np.concatenate(
+                [post[starts[w]:starts[w] + sizes[w]] for w in row]))
+    return out
+
+
+@pytest.mark.parametrize("chunk_b", [64, 0])
+@pytest.mark.parametrize("fract_id", ["0.5", "0.97"])
+def test_rank_touched_counts_distinct_targets(big_db, fract_id, chunk_b):
+    """rank_touched equals the distinct targets a numpy count of the same
+    hit streams finds, summed over the queries (UDBSearchBig)."""
+    db_fa, q_fa = big_db
+    _db, index, _seqs, jbuf, j_off = _port_setup(
+        db_fa, q_fa, ["-id", fract_id, "-big", "10"])
+    ranker = csr_rank.CSRDeviceRanker(index, CPU, chunk_b=chunk_b)
+    streams = _hit_streams(ranker, jbuf, j_off)
+    assert len(streams) == 100 and sum(map(len, streams)) > 0
+    ranker.rank_window(jbuf, j_off)
+    assert ranker.stats["rank_touched"] == sum(len(np.unique(s))
+                                               for s in streams)
+    assert "rank_kernel_launches" not in ranker.stats
+
+
+def test_over_cap_rerank_at_window_chunks(big_db, monkeypatch):
+    """Above -big with the window as one chunk and a CAP_MAX that some
+    jobs pass: exactly those come back uncertain, the override ranks them
+    as the host does, and its lists equal those of chunks of 64."""
+    from usearch12_tpu_torch.engine.batch import BatchEngine
+    db_fa, q_fa = big_db
+    db, index, _seqs, jbuf, j_off = _port_setup(db_fa, q_fa, ["-big", "10"])
+    probe = csr_rank.CSRDeviceRanker(index, CPU)
+    totals = np.array([len(s) for s in _hit_streams(probe, jbuf, j_off)])
+    cap_max = int(np.median(totals))
+    monkeypatch.setattr(csr_rank.CSRDeviceRanker, "CAP_MAX", cap_max)
+    over = totals > cap_max
+    assert 0 < over.sum() < len(totals)
+    outs = []
+    for chunk_b in (csr_rank.CSRRanker.WINDOW, 64):
+        ranker = csr_rank.CSRDeviceRanker(index, CPU, chunk_b=chunk_b)
+        _cand, _cnts, out_n, unc = ranker.rank_window(jbuf, j_off)
+        assert np.array_equal(unc & over, over) and (out_n[over] == 0).all()
+        eng = BatchEngine("usearch_global", db, index=index)
+        outs.append(csr_rank.make_engine_override(ranker, eng)(jbuf, j_off))
+        assert eng.dev_stats["rank_host_rerank_jobs"] == unc.sum()
+    for x, y in zip(*outs):
+        assert x.dtype == y.dtype and np.array_equal(x, y)
+    redo = np.nonzero(over)[0]
+    parts = [jbuf[j_off[j]:j_off[j + 1]] for j in redo]
+    sub_off = np.zeros(len(redo) + 1, np.int64)
+    np.cumsum([len(x) for x in parts], out=sub_off[1:])
+    h_cand, h_cnts, h_out_n = eng._rank_jobs(np.concatenate(parts), sub_off)
+    o_cand, o_cnts, o_out_n = outs[0]
+    assert np.array_equal(o_out_n[redo], h_out_n)
+    for r, j in enumerate(redo):
+        k = int(h_out_n[r])
+        assert np.array_equal(o_cand[j, :k], h_cand[r, :k]), j
+        assert np.array_equal(o_cnts[j, :k], h_cnts[r, :k]), j
+
+
+@pytest.mark.parametrize("smem_hits", [0, 40, 10 ** 9])
+def test_kernel_meta_places_device_memory_tables(big_db, monkeypatch,
+                                                 smem_hits):
+    """csr_rank_big's input: each row's words, then for a query above
+    SMEM_HITS hits its table's offset and size (a power of two of at
+    least twice its hits), the tables packed into one buffer of
+    spill_total slots for the chunk's one launch."""
+    db_fa, q_fa = big_db
+    _db, index, _seqs, jbuf, j_off = _port_setup(db_fa, q_fa, ["-big", "10"])
+    ranker = csr_rank.CSRDeviceRanker(index, CPU)
+    _n, chunks, _over = ranker.prepare_chunks(jbuf, j_off)
+    qw, cap = chunks[0][2], chunks[0][3]
+    monkeypatch.setattr(csr_rank, "SMEM_HITS", smem_hits)
+    meta, spill_total, spills = ranker.kernel_meta(qw, cap)
+    B, wmax = qw.shape
+    assert np.array_equal(meta[:, :wmax], qw)
+    hits = np.minimum(ranker._sizes_np[qw].sum(1), cap)
+    spill = hits > smem_hits
+    assert spills == spill.sum()
+    off, slots = meta[:, wmax], meta[:, wmax + 1]
+    assert (slots[~spill] == 0).all() and (off[~spill] == 0).all()
+    assert (slots[spill] >= 2 * hits[spill]).all()
+    assert (slots[spill] < 4 * np.maximum(hits[spill], 1)).all()
+    assert all(s & (s - 1) == 0 for s in slots[spill])
+    assert spill_total == slots.sum()
+    assert np.array_equal(off[spill], np.cumsum(slots[spill])
+                          - slots[spill])
+    if smem_hits == 0:
+        assert spills == B
+    if spills == 0:
+        assert spill_total == 0

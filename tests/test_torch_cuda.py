@@ -450,8 +450,10 @@ def test_pick_hist_rows_past_shared_memory(card, uwmax, dtype):
 @pytest.mark.parametrize("extra", [[], ["-big", "10"],
                                    ["-big", "10", "-stepwords", "0"]])
 def test_csr_ranker_on_card_matches_cpu(card, tmp_path, extra):
-    """The CSR ranker's torch ops on the card equal their CPU run, below
-    -big (SetTopBump) and above it (UDBSearchBig)."""
+    """The CSR ranker on the card equals its CPU run (the torch ops in
+    chunks of 32), below -big (SetTopBump, torch ops on the card in
+    chunks of 32) and above it (UDBSearchBig: the kernel, one launch for
+    the window as one chunk)."""
     from usearch12_tpu_torch.cli import parse_argv
     from usearch12_tpu_torch.index.udb import UDBIndex
     from usearch12_tpu_torch.io.fastx import read_fastx
@@ -467,12 +469,19 @@ def test_csr_ranker_on_card_matches_cpu(card, tmp_path, extra):
     jbuf = np.ascontiguousarray(np.concatenate(seqs))
     j_off = np.zeros(len(seqs) + 1, np.int64)
     np.cumsum([len(s) for s in seqs], out=j_off[1:])
-    got = CSRDeviceRanker(index, card, chunk_b=32).rank_window(jbuf, j_off)
+    ranker = CSRDeviceRanker(index, card, chunk_b=32)
+    got = ranker.rank_window(jbuf, j_off)
     want = CSRDeviceRanker(index, torch.device("cpu"),
                            chunk_b=32).rank_window(jbuf, j_off)
     for x, y in zip(got, want):
         assert x.dtype == y.dtype and np.array_equal(x, y)
     assert got[2].min() > 0
+    launches = ranker.stats.get("rank_kernel_launches", 0)
+    if ranker.big:
+        assert ranker.chunk_b == ranker.WINDOW
+        assert launches == ranker.stats["rank_chunks"] == 1
+    else:
+        assert ranker.chunk_b == 32 and launches == 0
 
 
 def _rank_db(tmp_path):
@@ -494,6 +503,177 @@ def _rank_db(tmp_path):
         with open(path, "w") as f:
             f.writelines(f">s{i}\n{recs[i]}\n" for i in part)
     return db_fa, q_fa
+
+
+def _csr(rng, V, T, size_lo, size_hi, pool):
+    """A random CSR of V words over T targets as csr_arrays() gives it:
+    row sizes in [size_lo, size_hi), each posting drawn from the first
+    `pool` targets (so counts tie), repeats within a row allowed."""
+    sizes = np.zeros(V + 1, np.int64)
+    sizes[:V] = rng.integers(size_lo, size_hi, V)
+    starts = np.zeros(V + 2, np.int64)
+    starts[1:V + 1] = np.cumsum(sizes[:V])
+    starts[V + 1] = starts[V]
+    post = np.concatenate([rng.integers(0, pool, int(starts[V])),
+                           [T]]).astype(np.int32)
+    return starts, sizes, post
+
+
+def _kernel_vs_plain(card, csr, T, qw, cap, topk=64):
+    """run_chunk of the kernel route on the card against the torch ops on
+    the CPU: counts, targets and nextv bit for bit, and rank_touched.
+    Returns the card ranker's stats and its (counts, targets, nextv)."""
+    from usearch12_tpu_torch.ops.csr_rank import CSRDeviceRanker, csr_rank_big
+    rankers = [CSRDeviceRanker.from_arrays(T, *csr, topk, 0, True, d)
+               for d in (card, torch.device("cpu"))]
+    assert rankers[0]._kernel and not rankers[1]._kernel
+    n0 = csr_rank_big.launches
+    got, want = (r.run_chunk(qw, cap) for r in rankers)
+    torch.cuda.synchronize()
+    assert csr_rank_big.launches == n0 + 1
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and np.array_equal(x, y)
+    assert rankers[0].stats["rank_touched"] == \
+        rankers[1].stats["rank_touched"]
+    assert rankers[0].stats["rank_kernel_launches"] == 1
+    return rankers[0].stats, got
+
+
+def _pow2(n):
+    return 1 << int(max(n, 64) - 1).bit_length()
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_csr_rank_kernel_ties(card, seed):
+    """Random CSRs whose postings come from a small pool of targets (many
+    equal counts, repeats within a row): 300 queries of up to 32 words,
+    some words padding, K = 64 and K = 200."""
+    rng = np.random.default_rng(seed)
+    V, T = 700, 5000
+    csr = _csr(rng, V, T, 0, 300, 400)
+    qw = rng.integers(0, V + 1, (300, 32))
+    cap = _pow2(int(csr[1][qw].sum(1).max()))
+    for k in (64, 200):
+        stats, _got = _kernel_vs_plain(card, csr, T, qw, cap, k)
+    assert stats["rank_spills"] == 0 and stats["rank_touched"] > 0
+
+
+def test_csr_rank_kernel_edges(card):
+    """All-padding rows, queries with fewer touched targets than K, a
+    query of one hit and rows past the largest word, in one chunk."""
+    rng = np.random.default_rng(3)
+    V, T = 50, 1000
+    csr = _csr(rng, V, T, 0, 6, T)
+    qw = np.full((8, 16), V, np.int64)
+    qw[1, :3] = [0, 1, 2]
+    qw[2, 5] = int(np.nonzero(csr[1][:V] == 1)[0][0])
+    qw[3] = rng.integers(0, V, 16)
+    stats, (cnts, tgts, nextv) = _kernel_vs_plain(card, csr, T, qw, 128)
+    assert (cnts[0] == 0).all() and (tgts[0] == T).all() and nextv[0] == 0
+    assert (cnts[2, 1:] == 0).all() and cnts[2, 0] == 1
+    assert stats["rank_touched"] < 8 * 64
+
+
+def test_csr_rank_kernel_spills(card):
+    """Queries whose hits pass SMEM_HITS, and whose distinct targets pass
+    the on-chip table's slots, take tables in device memory (rank_spills
+    counts them); beside them queries that do not."""
+    from usearch12_tpu_torch.ops import csr_rank
+    rng = np.random.default_rng(4)
+    V, T = 64, 200000
+    csr = _csr(rng, V, T, 2500, 4500, T)
+    qw = np.full((6, 8), V, np.int64)
+    qw[:4] = rng.integers(0, V, (4, 8))
+    qw[4, :2] = [0, 1]
+    hits = csr[1][qw].sum(1)
+    assert (hits[:4] > csr_rank.SMEM_HITS).all()
+    assert (hits[4:] <= csr_rank.SMEM_HITS).all()
+    stats, _got = _kernel_vs_plain(card, csr, T, qw, _pow2(int(hits.max())))
+    assert stats["rank_spills"] == 4
+    assert stats["rank_touched"] > 4 * 16384
+
+
+def test_csr_rank_kernel_cap_max(card):
+    """A cap of CAP_MAX: queries of exactly 2^18 hits, and one whose hit
+    stream the cap cuts (the plain version's truncation), with many
+    repeats."""
+    from usearch12_tpu_torch.ops import csr_rank
+    rng = np.random.default_rng(5)
+    V, T, cap = 10, 300000, csr_rank.CSRRanker.CAP_MAX
+    csr = _csr(rng, V, T, cap // 8, cap // 8 + 1, 150000)
+    qw = np.full((3, 10), V, np.int64)
+    qw[0, :8] = np.arange(8)
+    qw[1, :8] = np.arange(2, 10)
+    qw[2] = np.arange(10)
+    assert csr[1][qw[0]].sum() == cap and csr[1][qw[2]].sum() > cap
+    stats, _got = _kernel_vs_plain(card, csr, T, qw, cap)
+    assert stats["rank_spills"] == 3
+
+
+def _clade_db(tmp_path, n_clades=60, members=30, n_reads=256, length=253):
+    """A DB built like gg99_v4 at test size: n_clades random templates,
+    each with `members` targets 0-3 substitutions from it (ties among
+    near and equal targets); reads of random targets with 0-5
+    substitutions."""
+    rng = np.random.default_rng(47)
+    conv = np.frombuffer(b"ACGT", np.uint8)
+
+    def mutate(s, n):
+        s = s.copy()
+        s[rng.integers(0, length, n)] = conv[rng.integers(0, 4, n)]
+        return s
+
+    tgts = [mutate(tpl, int(rng.integers(0, 4)))
+            for tpl in (conv[rng.integers(0, 4, length)]
+                        for _ in range(n_clades)) for _ in range(members)]
+    reads = [mutate(tgts[int(rng.integers(0, len(tgts)))],
+                    int(rng.integers(0, 6))) for _ in range(n_reads)]
+    db_fa, q_fa = str(tmp_path / "db.fa"), str(tmp_path / "q.fa")
+    for path, recs in ((db_fa, tgts), (q_fa, reads)):
+        with open(path, "w") as f:
+            f.writelines(f">s{i}\n{r.tobytes().decode()}\n"
+                         for i, r in enumerate(recs))
+    return db_fa, q_fa
+
+
+def test_csr_ranker_clade_db_window(card, tmp_path):
+    """usearch_global's ranking of 256 reads against a clade-structured
+    DB of 1,800 targets above -big (UDBSearchBig, -id 0.97): the window
+    as one kernel launch equals the torch ops on the CPU in candidates,
+    counts, list lengths and uncertain flags, and makes nothing of the
+    size of the dense count rows."""
+    from usearch12_tpu_torch.cli import parse_argv
+    from usearch12_tpu_torch.index.udb import UDBIndex
+    from usearch12_tpu_torch.io.fastx import read_fastx
+    from usearch12_tpu_torch.io.seqdb import SeqDB
+    from usearch12_tpu_torch.ops.csr_rank import CSRDeviceRanker
+    db_fa, q_fa = _clade_db(tmp_path)
+    parse_argv(["-usearch_global", q_fa, "-db", db_fa, "-id", "0.97",
+                "-strand", "plus", "-big", "100", "-quiet"])
+    db = SeqDB.from_fastx(db_fa)
+    db.mask()
+    index = UDBIndex.from_seqdb(db)
+    seqs = [s for _l, s, _q in read_fastx(q_fa, stream=True)]
+    jbuf = np.ascontiguousarray(np.concatenate(seqs))
+    j_off = np.zeros(len(seqs) + 1, np.int64)
+    np.cumsum([len(s) for s in seqs], out=j_off[1:])
+    ranker = CSRDeviceRanker(index, card)
+    assert ranker._kernel and ranker.chunk_b == ranker.WINDOW
+    ranker.rank_window(jbuf, j_off)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(card)
+    torch.cuda.reset_peak_memory_stats(card)
+    got = ranker.rank_window(jbuf, j_off)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(card) - base
+    cpu = CSRDeviceRanker(index, torch.device("cpu"))
+    want = cpu.rank_window(jbuf, j_off)
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype and np.array_equal(x, y)
+    assert ranker.stats["rank_kernel_launches"] == 2
+    assert ranker.stats["rank_touched"] == 2 * cpu.stats["rank_touched"]
+    assert (got[1][:, 0] > 1).mean() > 0.9
+    assert peak < len(seqs) * (1 << ranker.t_bits) * 8 // 4
 
 
 @pytest.mark.parametrize("n_queries,n_targets", [(64, 296), (5, 13)])

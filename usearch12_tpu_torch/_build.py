@@ -143,6 +143,13 @@ def load_library():
                 vp]                            # stream
             lib.sintax_boot_partial_bytes.restype = i64
             lib.sintax_boot_partial_bytes.argtypes = [i32, i32, i32]
+            lib.csr_rank_big_launch.restype = i32
+            lib.csr_rank_big_launch.argtypes = [
+                vp, vp, vp,                    # starts, sizes, postings
+                vp, i32, i32, i32, i32, i32,   # meta, B, wmax, cap, T, K
+                vp, i64,                       # spill, spill_total
+                vp, vp, vp,                    # cand_key, cand_tgt, out
+                vp]                            # stream
             lib.wavefront_cuda_error_string.restype = ctypes.c_char_p
             lib.wavefront_cuda_error_string.argtypes = [i32]
             _lib = lib

@@ -11,11 +11,13 @@ across command runs.  The semantics on each side of -big are
 ops/csr_rank.py's.
 
 A ranker counts its stages in `stats` (obs.span): rank_prepare_ns/_n
-(prepare_chunks), rank_finish_ns/_n (_finish and the override's host
+(prepare_chunks, and the device ranker's kernel input a chunk),
+rank_finish_ns/_n (_finish and the override's host
 re-rank), rank_device_ns/_n (a chunk's upload to its top K, where the
 subclass times it), rank_chunks and rank_hit_slots (chunk rows times the
-hit stream's padded length); the engine's override adds them into
-BatchEngine.dev_stats after each window.
+hit stream's padded length), and what the subclass counts (the device
+ranker's rank_kernel_launches, rank_touched, rank_spills); the engine's
+override adds them into BatchEngine.dev_stats after each window.
 """
 
 from __future__ import annotations
@@ -32,11 +34,14 @@ from ..search.usorted import big_query_step
 
 class CSRRanker:
     """Exact USORT ranking of query windows, a chunk of `chunk_b` queries
-    at a time, with the semantics of the host ranker on the same side of
-    -big; run_chunk is the subclass's."""
+    at a time (WINDOW: the window's jobs as one chunk), with the semantics
+    of the host ranker on the same side of -big; run_chunk is the
+    subclass's."""
 
     # hit-stream positions a query, at most (the JAX ranker's ceiling)
     CAP_MAX = 1 << 18
+    # chunk_b: each window's jobs as one chunk
+    WINDOW = 0
 
     def __init__(self, index, topk: int = 64, bump: Optional[int] = None,
                  chunk_b: int = 64) -> None:
@@ -47,7 +52,7 @@ class CSRRanker:
         self.bump = int(o.uns("bump")) if bump is None else bump
         self.chunk_b = chunk_b
         self.stats = {}
-        self._trace = False
+        self._trace, self._seq = False, None
         self.t = index.seq_count
         params = index.params
         self._params = params
@@ -97,10 +102,11 @@ class CSRRanker:
         fit = totals[~over] if (~over).any() else np.array([64])
         max_hits = max(int(fit.max(initial=64)), 64, K)
         cap = min(1 << int(np.ceil(np.log2(max_hits))), self.CAP_MAX)
+        rows = self.chunk_b or max(n_jobs, 1)
         chunks = []
-        for lo in range(0, n_jobs, self.chunk_b):
-            hi = min(lo + self.chunk_b, n_jobs)
-            qw = np.full((self.chunk_b, wmax), self._v, dtype=np.int64)
+        for lo in range(0, n_jobs, rows):
+            hi = min(lo + rows, n_jobs)
+            qw = np.full((rows, wmax), self._v, dtype=np.int64)
             for j, w in enumerate(uw[lo:hi]):
                 if not over[lo + j]:
                     qw[j, :len(w)] = w
@@ -120,7 +126,7 @@ class CSRRanker:
         ranking.  trace: torch.profiler records (the stages' ranges, the
         card's timer), seq: the request's number."""
         st = self.stats
-        self._trace = trace
+        self._trace, self._seq = trace, seq
         with obs.span(st, "rank_prepare", trace, seq):
             n_jobs, chunks, over = self.prepare_chunks(jbuf, j_off)
         K = self.topk

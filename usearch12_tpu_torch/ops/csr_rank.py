@@ -19,15 +19,29 @@ ranker takes the semantics of the host path it replaces on each side of
   running maximum before the last record in that order, the top K by
   (count desc, first touch asc).
 
-Per chunk of `chunk_b` queries, in torch ops on the device (no kernel of
-the port's own: these are the JAX package's jnp stages, not Pallas
-kernels): the hit stream, a gather of each query's posting rows through
-the segment each position falls in (searchsorted over the rows' running
-ends); per-target counts by bincount over row * TP + target; the prefix
-maxima by cummax, or the first touches by scatter_reduce(amin); the top K
-by topk over one int64 key a target.  The hit stream is capped at
-CAP_MAX positions a query; queries above it come back `uncertain` and
-make_engine_override (ops/csr_host.py) ranks them on the host.
+Two routes rank a chunk (run_chunk), chosen by what the ranker holds:
+
+- UDBSearchBig on a CUDA device: one launch of the kernel of
+  csrc/csr_rank.cu (csr_rank_big) for the whole chunk, one block a query
+  walking its posting rows and counting in a table of the targets it
+  touches, then one copy back of a packed (B, 2K + 2) row a query.
+  Nothing of the size of the target set is made, so this route ranks
+  each window as one chunk (chunk_b = WINDOW), whatever chunk_b asks.
+- Otherwise (SetTopBump, or CPU tensors), in torch ops, the JAX
+  package's jnp stages (no Pallas kernel there): the hit stream, a gather
+  of each query's posting rows through the segment each position falls
+  in (searchsorted over the rows' running ends); per-target counts by
+  bincount over row * TP + target; the prefix maxima by cummax, or the
+  first touches by scatter_reduce(amin); the top K by topk over one int64
+  key a target, in chunks of `chunk_b` (64) queries.  In big mode this
+  route (rank_plain) is the kernel's plain version.
+
+The hit stream is capped at CAP_MAX positions a query; queries above it
+come back `uncertain` and make_engine_override (ops/csr_host.py) ranks
+them on the host.  Besides the host half's, the ranker counts in `stats`
+rank_kernel_launches (the kernel's launches), rank_touched (the distinct
+targets counted, summed over the queries; big mode) and rank_spills
+(queries whose table the kernel kept in device memory, not on chip).
 """
 
 from __future__ import annotations
@@ -37,19 +51,70 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import obs
+from .. import _build, obs
 from .csr_host import CSRRanker, make_engine_override  # noqa: F401
+from .wavefront_trace import check_tensor
+
+# most hits of a query whose table the kernel keeps in shared memory (7/8
+# of csrc/csr_rank.cu's CR_SLOTS); a query with more has one in device
+# memory, twice its hits rounded up to a power of two (at most 2^19 slots
+# of 12 bytes: 3 GB for a window of 512 such queries)
+SMEM_HITS = 14336
+
+
+def csr_rank_big(starts, sizes, postings, meta, cap: int, t: int, k: int,
+                 spill_total: int) -> torch.Tensor:
+    """UDBSearchBig ranking of a chunk on the card (csrc/csr_rank.cu), one
+    launch: starts, sizes (V + 2,), (V + 1,) int64 and postings int32, the
+    CSR of csr_arrays(); meta (B, wmax + 2) int64, each query's words
+    (V: padding), then its table's offset and size in a device-memory
+    table of spill_total slots (size 0: on chip).  Returns (B, 2k + 2)
+    int32 rows: the top k counts, their targets (0 and t past the touched
+    targets), nextv (-1 where a table filled) and the targets touched."""
+    dev = meta.device
+    if dev.type != "cuda":
+        raise ValueError(f"csr_rank_big: {dev} not supported")
+    check_tensor("starts", starts, torch.int64, 1, dev)
+    check_tensor("sizes", sizes, torch.int64, 1, dev)
+    check_tensor("postings", postings, torch.int32, 1, dev)
+    check_tensor("meta", meta, torch.int64, 2, dev)
+    if not 0 < cap <= CSRRanker.CAP_MAX or k < 1 or meta.shape[1] < 2:
+        raise ValueError(f"csr_rank_big: cap {cap}, k {k}, meta "
+                         f"{tuple(meta.shape)}")
+    B, wmax = meta.shape[0], meta.shape[1] - 2
+    out = torch.empty((B, 2 * k + 2), dtype=torch.int32, device=dev)
+    cand_key = torch.empty((B, k), dtype=torch.int64, device=dev)
+    cand_tgt = torch.empty((B, k), dtype=torch.int32, device=dev)
+    spill = torch.empty((3, max(spill_total, 1)), dtype=torch.int32,
+                        device=dev)
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        err = lib.csr_rank_big_launch(
+            starts.data_ptr(), sizes.data_ptr(), postings.data_ptr(),
+            meta.data_ptr(), B, wmax, cap, t, k, spill.data_ptr(),
+            spill.shape[1], cand_key.data_ptr(), cand_tgt.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch("csr_rank_big", err)
+    csr_rank_big.launches += 1
+    return out
+
+
+csr_rank_big.launches = 0
 
 
 class CSRDeviceRanker(CSRRanker):
     """Exact USORT ranking of query windows from device-resident CSR
     postings, with the semantics of the host ranker on the same side of
-    -big (the host half is ops/csr_host.py's)."""
+    -big (the host half is ops/csr_host.py's).  chunk_b: the queries a
+    chunk of the torch ops' route, whose dense count rows it bounds; the
+    kernel's route ranks each window as one chunk."""
 
     def __init__(self, index, device, topk: int = 64,
                  bump: Optional[int] = None, chunk_b: int = 64) -> None:
         super().__init__(index, topk, bump, chunk_b)
         self._put(torch.device(device), *self.csr_arrays())
+        if self._kernel:
+            self.chunk_b = self.WINDOW
 
     @classmethod
     def from_arrays(cls, t: int, starts, sizes, postings, topk: int,
@@ -61,7 +126,7 @@ class CSRDeviceRanker(CSRRanker):
         self = cls.__new__(cls)
         self.index = None
         self.stats = {}
-        self._trace = False
+        self._trace, self._seq = False, None
         self.t, self.topk, self.bump, self.big = t, topk, bump, big
         self._put(torch.device(device), starts, sizes, postings)
         return self
@@ -74,8 +139,14 @@ class CSRDeviceRanker(CSRRanker):
             device)
         self._postings = torch.from_numpy(np.asarray(post, np.int32)).to(
             device)
-        # dense count rows of TP >= T + 1 columns
+        self._sizes_np = np.asarray(sizes, np.int64)
+        # dense count rows of TP >= T + 1 columns (the torch ops' route)
         self.t_bits = max(int(self.t + 1).bit_length(), 7)
+        # UDBSearchBig on the card takes the kernel; its library is built
+        # or loaded here, in set-up
+        self._kernel = self.big and device.type == "cuda"
+        if self._kernel:
+            _build.load_library()
 
     # -- device half -----------------------------------------------------
     def hits(self, qw: torch.Tensor, cap: int) -> torch.Tensor:
@@ -164,23 +235,71 @@ class CSRDeviceRanker(CSRRanker):
         nc = torch.where(topv >= 0, topv >> bits, 0)
         return nc, torch.where(nc > 0, topi, self.t)
 
+    def rank_plain(self, q: torch.Tensor, cap: int):
+        """A chunk's ranking in torch ops on q's device (in big mode the
+        kernel's plain version) -> (nc, nt, nextv) int64 tensors and, in
+        big mode, the targets each query touched (else None)."""
+        hits = self.hits(q, cap)
+        count = self.counts(hits)
+        if not self.big:
+            return (*self.rank_sorted(count), None)
+        return (*self.rank_big(count, hits), (count > 0).sum(1))
+
+    def kernel_meta(self, qw: np.ndarray, cap: int):
+        """qw (B, wmax) -> (meta (B, wmax + 2) int64, spill_total,
+        spills): csr_rank_big's input, the device-memory table slots its
+        rows place, and the number of queries whose table is in device
+        memory (those of more than SMEM_HITS hits)."""
+        B, wmax = qw.shape
+        if qw.size and (qw.min() < 0 or qw.max() >= len(self._sizes_np)):
+            raise ValueError("csr_rank_big: a word outside the CSR")
+        hits = np.minimum(self._sizes_np[qw].sum(1), cap)
+        meta = np.zeros((B, wmax + 2), np.int64)
+        meta[:, :wmax] = qw
+        spill = hits > SMEM_HITS
+        slots = np.array([1 << int(2 * h - 1).bit_length()
+                          for h in hits[spill]], np.int64)
+        meta[spill, wmax + 1] = slots
+        meta[spill, wmax] = np.cumsum(slots) - slots
+        return meta, int(slots.sum()), int(spill.sum())
+
     def run_chunk(self, qw: np.ndarray, cap: int):
         """One chunk on the device -> host (cnts, targets, nextv); its
         upload to its top K timed into stats["rank_device_ns"] (on a CUDA
         device only while the window is traced)."""
+        st = self.stats
         timer = obs.DeviceTimer(self.device, self._trace)
-        timer.start()
-        q = torch.from_numpy(qw).to(self.device)
-        hits = self.hits(q, cap)
-        count = self.counts(hits)
-        if self.big:
-            nc, nt, nextv = self.rank_big(count, hits)
+        if self._kernel:
+            # the kernel's input is host work of the ranker's own: its
+            # time goes to the host half's prepare span
+            with obs.span(st, "rank_prepare", self._trace, self._seq):
+                meta, spill_total, spills = self.kernel_meta(qw, cap)
+            timer.start()
+            out = csr_rank_big(self._starts, self._sizes, self._postings,
+                               torch.from_numpy(meta).to(self.device), cap,
+                               self.t, self.topk, spill_total)
+            timer.stop()
+            out = out.cpu().numpy().astype(np.int64)
+            K = self.topk
+            nc, nt, nextv, touched = (out[:, :K], out[:, K:2 * K],
+                                      out[:, 2 * K], out[:, 2 * K + 1])
+            if (nextv < 0).any():
+                raise RuntimeError("csr_rank_big: a query's table filled")
+            obs.add(st, "rank_kernel_launches", 1)
+            obs.add(st, "rank_spills", spills)
         else:
-            nc, nt, nextv = self.rank_sorted(count)
-        timer.stop()
-        out = torch.stack([nc, nt], 0).cpu().numpy()
+            timer.start()
+            nc, nt, nextv, touched = self.rank_plain(
+                torch.from_numpy(qw).to(self.device), cap)
+            timer.stop()
+            out = torch.stack([nc, nt], 0).cpu().numpy()
+            nc, nt, nextv = out[0], out[1], nextv.cpu().numpy()
+            if touched is not None:
+                touched = touched.cpu().numpy()
         ns = timer.ns()
         if ns is not None:
-            obs.add(self.stats, "rank_device_ns", ns)
-            obs.add(self.stats, "rank_device_n", 1)
-        return out[0], out[1], nextv.cpu().numpy()
+            obs.add(st, "rank_device_ns", ns)
+            obs.add(st, "rank_device_n", 1)
+        if touched is not None:
+            obs.add(st, "rank_touched", int(touched.sum()))
+        return nc, nt, nextv

@@ -46,7 +46,10 @@ Phases, each printing a line, any failure exits non-zero:
      (every target ties); the histogram timed through its wrapper and
      alone beside torch.bincount over the same picks (whose counts must
      equal it), the fused kernel beside the route it replaced (the
-     gather, mask and cast of the incidence rows, and the bmm);
+     gather, mask and cast of the incidence rows, and the bmm); then both
+     wrappers the same way, at m = 32, on one full chunk at the shape of
+     the benchmark's sintax_rdp18 cell (21,195 targets of 1,200-1,600
+     nt, about 245 words a strand, 64 reads of 253 nt; gen_rdp_shape);
   7. sintax: the JAX package's SINTAX device workload (bench.py's
      _gen_sintax_big, seed 17, not cut: 60,000 targets of 248 nt, 1,500
      queries, -strand both -randseed 1) through the port's command line
@@ -94,8 +97,9 @@ Phases, each printing a line, any failure exits non-zero:
      card against the 1x1 mesh, equal on every job; the stages of one
      chunk of rows beside their bounds and the window's profile; (c) two
      processes on the card through multihost_search (gloo), the spliced
-     blast6 equal to (b)'s at -big 300000; (d) -xprof on 200 queries,
-     whose trace must hold CUDA kernel events;
+     blast6 equal to (b)'s at -big 300000; (d) -xprof on 200 queries
+     as a fresh process of the port's command line, whose trace must
+     hold the csr_rank_big kernel;
  11. server: the resident device server (device_server.py), its socket
      under the phase's own TMPDIR, driven by fresh processes of the
      port's command line in which torch, jax and usearch12_tpu cannot be
@@ -163,7 +167,9 @@ Each phase prints its seconds.  The line before the last is the kernel
 summary as JSON, the last line {"ok": true, "device": {...}}.  In the
 summary `ms` is each kernel's time through its wrapper; `kernel_ms` the
 kernel alone, its outputs allocated beforehand, where this run times it
-(banded_nw_fwd, banded_nw_chase and sintax_pick_hist), else null.
+(banded_nw_fwd, banded_nw_chase and sintax_pick_hist), else null.  The
+SINTAX rows' `at_rdp_shape` holds the same numbers at phase 6's
+sintax_rdp18 shape.
 """
 
 import contextlib
@@ -237,6 +243,37 @@ def gen_sintax(dbf, qf, n_targets=60000, n_queries=1500, seed=17):
             s = seqs[(i * 13) % len(seqs)].copy()
             pos = rng.integers(0, len(s), 8)
             s[pos] = conv[rng.integers(0, 4, 8)]
+            f.write(f">q{i}\n{s.tobytes().decode()}\n")
+
+
+def gen_rdp_shape(dbf, qf, n_targets=21195, n_queries=64, seed=19):
+    """SINTAX at the shape of the benchmark's sintax_rdp18 configuration:
+    21,195 targets of 1,200-1,600 nt in genera of about 7, each a piece of
+    its genus's 1,600-nt template with 3% substitutions, taxonomy
+    d,p,c,o,f,g; each query the 253-nt window at offset 500 of target
+    (13 i) % n_targets with 4 substitutions."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    conv = np.frombuffer(b"ACGT", np.uint8)
+    n_gen = n_targets // 7
+    tpls = conv[rng.integers(0, 4, (n_gen, 1600))]
+    seqs = []
+    with open(dbf, "w") as f:
+        for i in range(n_targets):
+            g = i % n_gen
+            n = int(rng.integers(1200, 1601))
+            at = int(rng.integers(0, 1601 - n))
+            s = tpls[g, at:at + n].copy()
+            pos = rng.integers(0, n, 3 * n // 100)
+            s[pos] = conv[rng.integers(0, 4, len(pos))]
+            seqs.append(s)
+            f.write(f">r{i};tax=d:D{g % 3},p:P{g % 30},c:C{g % 90},"
+                    f"o:O{g % 270},f:F{g % 900},g:G{g};\n"
+                    f"{s.tobytes().decode()}\n")
+    with open(qf, "w") as f:
+        for i in range(n_queries):
+            s = seqs[(i * 13) % n_targets][500:753].copy()
+            s[rng.integers(0, len(s), 4)] = conv[rng.integers(0, 4, 4)]
             f.write(f">q{i}\n{s.tobytes().decode()}\n")
 
 
@@ -1072,7 +1109,7 @@ def sintax_chunks(dbf, qf, d):
     import numpy as np
     from usearch12_tpu_torch import cli
     from usearch12_tpu_torch.amplicon import sintax_device as sd
-    q64 = os.path.join(d, "q64.fa")
+    q64 = os.path.join(d, os.path.basename(qf) + ".64.fa")
     with open(qf) as f, open(q64, "w") as out:
         out.writelines(f.readlines()[:128])
     seen = []
@@ -1091,7 +1128,8 @@ def sintax_chunks(dbf, qf, d):
         sd.TorchBootEngine.run_chunk = orig
     if rc != 0 or len(seen) != 1:
         fail(f"sintax chunk capture: exit {rc}, {len(seen)} chunks")
-    engine, (words, nuw, m, stream, rr) = seen[0]
+    # the chunk's arrays (the classifier also passes its DeviceTimer)
+    engine, (words, nuw, m, stream, rr) = seen[0][0], seen[0][1][:5]
     if words.shape[0] != 128 or int(m.min()) != 32:
         fail(f"sintax chunk capture: {words.shape} jobs, m {set(m)}")
     chunks = [(32, words, nuw, m, stream, rr)]
@@ -1154,7 +1192,7 @@ def flat_picks(nuw, m, stream, boots, uwmax):
     return flat[(k < m64).expand(flat.shape)]
 
 
-def check_sintax_kernels(engine, chunks, dev, other_hist=None):
+def check_sintax_kernels(engine, chunks, dev, other_hist=None, tag=""):
     """sintax_pick_hist (through its wrapper and alone) and the fused
     count-and-select kernel (sintax_boot_count_select) bit for bit against
     their plain versions on full chunks, torch.bincount over the picks
@@ -1162,7 +1200,8 @@ def check_sintax_kernels(engine, chunks, dev, other_hist=None):
     (gather, mask and cast; bmm) beside that kernel; with `other_hist`
     (another checkout's library) its sintax_pick_hist against this tree's,
     kernels alone, in turns other, this, this, other.  Returns times,
-    bounds and errors of the m = 32 chunk and the worst errors."""
+    bounds and errors of the m = 32 chunk and the worst errors; `tag`
+    names the database in the lines printed."""
     import torch
     from usearch12_tpu_torch import _build
     from usearch12_tpu_torch.ops import sintax_boot as sb
@@ -1182,22 +1221,22 @@ def check_sintax_kernels(engine, chunks, dev, other_hist=None):
                        2 * engine.B * int(m.astype("int64").sum()))
         hist_plain_ms, P_plain = cuda_ms(lambda: sb.pick_hist_plain(*args), 1)
         if not (bit_equal(P, P_plain) and bit_equal(P_alone, P_plain)):
-            fail(f"sintax m={m_val}: sintax_pick_hist differs from its "
+            fail(f"sintax{tag} m={m_val}: sintax_pick_hist differs from its "
                  "plain version")
         # the library's histogram: one bincount over the flat picks
         flat = flat_picks(nuw_d, m_d, stream_d, engine.B, words.shape[1])
         lib_ms, counts = cuda_ms(lambda: torch.bincount(
             flat, minlength=P.numel()), 20)
         if not torch.equal(counts, P.to(torch.int64).flatten()):
-            fail(f"sintax m={m_val}: torch.bincount's counts differ from "
+            fail(f"sintax{tag} m={m_val}: torch.bincount's counts differ from "
                  "sintax_pick_hist's")
         del flat, counts
         hist_turns = ""
         if other_hist is not None:
             P_other = raw_pick_hist(other_hist, args, torch.empty_like(P))
             if not bit_equal(P_other, P):
-                fail(f"against sintax m={m_val}: sintax_pick_hist differs "
-                     "from the other checkout's")
+                fail(f"against sintax{tag} m={m_val}: sintax_pick_hist "
+                     "differs from the other checkout's")
             times = in_turns({
                 "other": lambda: raw_pick_hist(other_hist, args, P_other),
                 "this": lambda: raw_pick_hist(lib, args, P_alone)}, 20)
@@ -1222,7 +1261,7 @@ def check_sintax_kernels(engine, chunks, dev, other_hist=None):
             warm=False)
         for name, x, y in zip(("winner", "top"), sel, sel_plain):
             if not bit_equal(x, y):
-                fail(f"sintax m={m_val}: sintax_boot_count_select {name} "
+                fail(f"sintax{tag} m={m_val}: sintax_boot_count_select {name} "
                      "differs from its plain version")
         P_r = P.to(rdt)
         gather_ms, mq = cuda_ms(lambda: sb.gather_rows(
@@ -1232,17 +1271,17 @@ def check_sintax_kernels(engine, chunks, dev, other_hist=None):
         for name, x, y in zip(("winner", "top"), sel,
                               sb.boot_select_plain(U, rr_d)):
             if not bit_equal(x, y):
-                fail(f"sintax m={m_val}: sintax_boot_count_select {name} "
+                fail(f"sintax{tag} m={m_val}: sintax_boot_count_select {name} "
                      "differs from the select over U")
         del U
         top = int(sel[1].max())
         if m_val == 0 and top != 0:
-            fail("sintax m=0: non-zero top")
+            fail(f"sintax{tag} m=0: non-zero top")
         out["hist_err"] = max(out["hist_err"],
                               float((P - P_plain).abs().max()))
         out["select_err"] = max(out["select_err"], float(max(
             (x - y).abs().max() for x, y in zip(sel, sel_plain))))
-        print(f"sintax kernels m={m_val}: {tuple(P.shape)} P of {dtype}, "
+        print(f"sintax kernels{tag} m={m_val}: {tuple(P.shape)} P of {dtype}, "
               f"{T} targets, {live} live word rows; sintax_pick_hist "
               f"{hist_ms:.3f} ms through the wrapper, {alone_ms:.4f} ms "
               f"alone, torch.bincount {lib_ms:.4f} ms, plain "
@@ -1265,14 +1304,15 @@ def check_sintax_kernels(engine, chunks, dev, other_hist=None):
 
 def sintax_run(args, stats=None, profile=False):
     """Wall seconds of one in-process sintax run through the port's
-    command line, with host-side stage times (classify_window and the
-    chunks' run_chunk, synchronised) and, if asked, the device time by
-    kernel from torch.profiler."""
+    command line, with host-side stage times (the classifier's boots and
+    tally, and the chunks' run_chunk, synchronised) and, if asked, the
+    device time by kernel from torch.profiler."""
     import torch
     from usearch12_tpu_torch import cli
     from usearch12_tpu_torch.amplicon import sintax_device as sd
-    stage = {"classify_window": 0.0, "run_chunk": 0.0}
-    orig = {"classify_window": sd.SintaxTorchClassifier.classify_window,
+    stage = {"boots": 0.0, "tally": 0.0, "run_chunk": 0.0}
+    orig = {"boots": sd.SintaxTorchClassifier.boots,
+            "tally": sd.SintaxTorchClassifier.tally,
             "run_chunk": sd.TorchBootEngine.run_chunk}
 
     def timed(name):
@@ -1283,7 +1323,8 @@ def sintax_run(args, stats=None, profile=False):
             return r
         return f
 
-    sd.SintaxTorchClassifier.classify_window = timed("classify_window")
+    sd.SintaxTorchClassifier.boots = timed("boots")
+    sd.SintaxTorchClassifier.tally = timed("tally")
     sd.TorchBootEngine.run_chunk = timed("run_chunk")
     if stats:
         os.environ["USEARCH_DEVICE_STATS"] = stats
@@ -1301,7 +1342,8 @@ def sintax_run(args, stats=None, profile=False):
     finally:
         if prof is not None:
             prof.__exit__(None, None, None)
-        sd.SintaxTorchClassifier.classify_window = orig["classify_window"]
+        sd.SintaxTorchClassifier.boots = orig["boots"]
+        sd.SintaxTorchClassifier.tally = orig["tally"]
         sd.TorchBootEngine.run_chunk = orig["run_chunk"]
         os.environ.pop("USEARCH_DEVICE_STATS", None)
     if rc != 0:
@@ -1365,6 +1407,23 @@ def phase_sintax(d, dev, phase_done, other_hist=None):
     boot = boot_inputs(engine, *chunks[0][1:], dev)
     del engine, chunks
     torch.cuda.empty_cache()
+    # the same wrappers at the shape of the benchmark's sintax_rdp18 cell:
+    # full-length targets, about 245 words a strand, the m = 32 chunk
+    rdp_db, rdp_q = (os.path.join(d, f"rdp_{x}.fa") for x in ("db", "q"))
+    t0 = time.perf_counter()
+    gen_rdp_shape(rdp_db, rdp_q)
+    engine, chunks = sintax_chunks(rdp_db, rdp_q, d)
+    print(f"sintax chunk, RDP shape: 128 jobs x {chunks[0][1].shape[1]} "
+          f"slots from the port's run on 64 queries, "
+          f"{time.perf_counter() - t0:.2f} s with the database written; "
+          f"incidence {tuple(engine.w_mat.shape)} int8, "
+          f"max {engine.inc_absmax}, "
+          f"{int(engine.w_mat.sum(dtype=torch.int64))} postings",
+          flush=True)
+    sx["rdp"] = check_sintax_kernels(engine, chunks[:1], dev,
+                                     tag=" (RDP shape)")
+    del engine, chunks
+    torch.cuda.empty_cache()
     phase_done(6, t_phase)
 
     # 7. the workload through the port's command line on the card against
@@ -1398,8 +1457,9 @@ def phase_sintax(d, dev, phase_done, other_hist=None):
         n_queries = f.read().count(">")
     print(f"sintax: 60,000 targets x 1,500 queries, -strand both; host "
           f"path (subprocess) {t_host:.2f} s, card "
-          f"{t_port:.2f} s (classify_window {stage['classify_window']:.2f} "
-          f"s, run_chunk {stage['run_chunk']:.2f} s); stats {rec}; "
+          f"{t_port:.2f} s (boots {stage['boots']:.2f} s, run_chunk "
+          f"{stage['run_chunk']:.2f} s, tally {stage['tally']:.2f} s); "
+          f"stats {rec}; "
           f"launches {launches}; {n_rows} rows, tabbedout "
           f"{'equal' if ref_b == port_b else 'DIFFERENT'}", flush=True)
     if ref_b != port_b or n_rows != n_queries:
@@ -1452,9 +1512,9 @@ def phase_sintax(d, dev, phase_done, other_hist=None):
           flush=True)
     wall, stage, prof = sintax_run(base + ["-sintax_device", "-tabbedout",
                                            port], profile=True)
-    print(f"sintax profile: wall {wall:.2f} s, classify_window "
-          f"{stage['classify_window']:.2f} s, run_chunk "
-          f"{stage['run_chunk']:.2f} s; {json.dumps(prof)}", flush=True)
+    print(f"sintax profile: wall {wall:.2f} s, boots {stage['boots']:.2f} "
+          f"s, run_chunk {stage['run_chunk']:.2f} s, tally "
+          f"{stage['tally']:.2f} s; {json.dumps(prof)}", flush=True)
     phase_done(7, t_phase)
     return sx, launches, {"db": dbf, "q": qf, "ref": ref_b}, boot
 
@@ -2035,26 +2095,37 @@ def phase_mesh(d, dev, phase_done):
         fail("the two-process spliced blast6 differs from one process's")
     out["c_s"] = t_mh
 
-    # (d) -xprof on the first 200 queries
+    # (d) -xprof on the first 200 queries, as a fresh process of the
+    # port's command line, as a user runs it: in this process, after the
+    # earlier phases, the profiler records none of the big ranker's device
+    # work (phase 9's profile of its window reads 0 ms), while a fresh
+    # process's trace holds csr_rank_big_kernel, also after a profiler
+    # session before the kernel's first launch
     q200 = os.path.join(d, "bigq200.fa")
     with open(qf) as f, open(q200, "w") as g:
         g.writelines(f.readlines()[:400])
     xdir = os.path.join(d, "xprof")
     t0 = time.perf_counter()
-    rc = cli.main(["-usearch_global", q200, "-db", udb, "-id", "0.9",
-                   "-strand", "plus", "-quiet", "-mesh", "1", "-blast6out",
-                   os.path.join(d, "x.b6"), "-xprof", xdir], device=dev)
+    r = subprocess.run([sys.executable, "-m", "usearch12_tpu_torch.cli",
+                        "-usearch_global", q200, "-db", udb, "-id", "0.9",
+                        "-strand", "plus", "-quiet", "-mesh", "1",
+                        "-blast6out", os.path.join(d, "x.b6"), "-xprof",
+                        xdir], cwd=HERE, capture_output=True, text=True,
+                       timeout=300)
     t_x = time.perf_counter() - t0
     traces = os.listdir(xdir) if os.path.isdir(xdir) else []
-    n_kernels = 0
-    if rc == 0 and len(traces) == 1:
+    kernels = []
+    if r.returncode == 0 and len(traces) == 1:
         with open(os.path.join(xdir, traces[0])) as f:
             ev = json.load(f)["traceEvents"]
-        n_kernels = sum(1 for e in ev if e.get("cat") == "kernel")
-    print(f"mesh (d) -xprof: 200 queries, {t_x:.2f} s, trace {traces}, "
-          f"{n_kernels} CUDA kernel events", flush=True)
-    if rc != 0 or n_kernels == 0:
-        fail("-xprof wrote no trace with CUDA kernel events")
+        kernels = [e["name"] for e in ev if e.get("cat") == "kernel"]
+    print(f"mesh (d) -xprof: 200 queries, a process of its own, {t_x:.2f} "
+          f"s, trace {traces}, {len(kernels)} CUDA kernel events "
+          f"{sorted(set(k[:40] for k in kernels))}", flush=True)
+    if r.returncode != 0:
+        fail(f"-xprof run exited {r.returncode}: {r.stderr[-2000:]}")
+    if not any(k.startswith("csr_rank_big_kernel") for k in kernels):
+        fail("-xprof's trace holds no csr_rank_big_kernel event")
     phase_done(10, t_phase)
     return out
 
@@ -2831,13 +2902,26 @@ def main():
     work_dir.cleanup()
 
     def row(name, source, replaces, n, err, ms, plain_ms, bnd,
-            library_ms=None, kernel_ms=None):
+            library_ms=None, kernel_ms=None, **shapes):
         return {"name": name, "route": "cuda",
                 "source": f"usearch12_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": n, "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
                 "bound_by": bnd[1], "library_ms": library_ms,
-                "kernel_ms": kernel_ms}
+                "kernel_ms": kernel_ms, **shapes}
+
+    # the SINTAX wrappers' chunk at the sintax_rdp18 shape (phase 6)
+    rdp = sx["rdp"]
+    rdp_hist = {"max_abs_err": rdp["hist_err"], "ms": rdp["hist_ms"],
+                "plain_ms": rdp["hist_plain_ms"],
+                "bound_ms": rdp["hist_bound"][0],
+                "bound_by": rdp["hist_bound"][1],
+                "library_ms": rdp["hist_lib_ms"],
+                "kernel_ms": rdp["hist_kernel_ms"]}
+    rdp_sel = {"max_abs_err": rdp["select_err"], "ms": rdp["sel_ms"],
+               "plain_ms": rdp["sel_plain_ms"],
+               "bound_ms": rdp["sel_bound"][0],
+               "bound_by": rdp["sel_bound"][1], "library_ms": None}
 
     print(json.dumps({"kernels": [
         row("wavefront_fwd", "wavefront_fwd.cu",
@@ -2867,11 +2951,12 @@ def main():
             "usearch12_tpu/amplicon/sintax_device.py:132",
             sx_launches["sintax_pick_hist"], sx["hist_err"], sx["hist_ms"],
             sx["hist_plain_ms"], sx["hist_bound"], sx["hist_lib_ms"],
-            sx["hist_kernel_ms"]),
+            sx["hist_kernel_ms"], at_rdp_shape=rdp_hist),
         row("sintax_boot_count_select", "sintax_boot.cu",
             "usearch12_tpu/amplicon/sintax_device.py:143",
             sx_launches["sintax_boot_count_select"], sx["select_err"],
-            sx["sel_ms"], sx["sel_plain_ms"], sx["sel_bound"]),
+            sx["sel_ms"], sx["sel_plain_ms"], sx["sel_bound"],
+            at_rdp_shape=rdp_sel),
         row("csr_rank_big", "csr_rank.cu",
             "usearch12_tpu/ops/csr_rank.py:105 (jnp stages)",
             rank["big97"]["launches"], 0, rank["big97"]["kernel_ms"],

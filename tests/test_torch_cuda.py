@@ -224,6 +224,27 @@ def test_sintax_boot_step_above_2048_picks(card):
     assert t_cpu.max() > sb.FP16_EXACT
 
 
+def test_sintax_resident_on_the_card_writes_the_commands_bytes(card,
+                                                               tmp_path):
+    """SintaxRun with its incidence on the card: each call writes the bytes
+    of a fresh sintax command, on the host path and on the card, with one
+    launch of each boot kernel a chunk."""
+    # by its basename, as pytest imports the test files of this directory
+    from test_torch_sintax_resident import _argv, _command, _data, _resident
+    db, q1, q2 = _data(tmp_path, 5)
+    argv = _argv(db, "-sintax_device")
+    got, run = _resident(argv, [q1, q2, q1], device=card)
+    assert run.on_card and run.dev_cls.device == card
+    host = [_command(tmp_path, q, _argv(db, "-no_sintax_device"))
+            for q in (q1, q2)]
+    assert got == [host[0], host[1], host[0]]
+    assert _command(tmp_path, q1, argv, device=card) == host[0]
+    st = run.dev_stats
+    assert st["sintax_launches"] == 2 * st["sintax_chunks"] > 0
+    # untraced, the card's chunks make no CUDA events
+    assert "sintax_boot_device_n" not in st
+
+
 def _trace_both_variants(card, pairs, radius, ap):
     """Both wavefront_trace kernels on pairs, bit-equal to the plain
     version; returns the scores and paths."""

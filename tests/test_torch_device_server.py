@@ -222,10 +222,9 @@ GONE_CASES = {
     "device_rank": ("sintax", "batch.BatchEngine", "search_window", [
         "-usearch_global", "q.fa", "-db", "db.fa", "-id", "0.9", "-strand",
         "plus", "-device_rank", "-blast6out", "out"]),
-    "sintax": ("sintax", "sintax_device.SintaxTorchClassifier",
-               "classify_window", [
-                   "-sintax", "q.fa", "-db", "db.fa", "-strand", "plus",
-                   "-boots", "10", "-sintax_device", "-tabbedout", "out"]),
+    "sintax": ("sintax", "sintax_device.SintaxTorchClassifier", "boots", [
+        "-sintax", "q.fa", "-db", "db.fa", "-strand", "plus", "-boots", "10",
+        "-sintax_device", "-tabbedout", "out"]),
 }
 
 

@@ -7,11 +7,14 @@ scatter-adds their UDB postings rows; the arg-max target (ties broken with
 the reference's global lagged-MWC RNG) votes for its taxonomy string.
 Per-rank confidence = cumulative-product bootstrap fraction.
 
-SintaxClassifier is the host path (C per window, numpy per query).  The
-boots run on the card (amplicon/sintax_device.py:SintaxTorchClassifier)
-when -sintax_device asks for it, or, unless -no_sintax_device is given,
-when the DB has at least AUTO_MIN_TARGETS targets (AUTO_MIN_SERVER_TARGETS
-when a resident server answers and the caller passed no device).  With no
+SintaxRun is the command's loaded state (the DB, its index, the classifier
+and, where chosen, the incidence on the card), which classifies one query
+file a call; sintax() builds one and makes one call.  SintaxClassifier is
+the host path (C per window, numpy per query).  The boots run on the card
+(amplicon/sintax_device.py:SintaxTorchClassifier) when -sintax_device asks
+for it, or, unless -no_sintax_device is given, when the DB has at least
+AUTO_MIN_TARGETS targets (AUTO_MIN_SERVER_TARGETS when a resident server
+answers and the caller passed no device).  With no
 device passed the boots go to the resident server (device_server.py),
 else, saying why on stderr, to the card in this process
 (commands.py:_engine_device).  Either way nothing falls back: a build,
@@ -31,6 +34,7 @@ import os
 
 import numpy as np
 
+from .. import obs
 from ..config import options
 from ..io.seqdb import SeqDB
 from ..index.udb import UDBIndex, UDBParams
@@ -154,6 +158,14 @@ class SintaxClassifier:
                 if name_in_tax_str(t, n):
                     contains[ti, ni] = True
         self._contains = contains
+
+    def restart_rng(self) -> None:
+        """The tie-break RNG back at -randseed: grand, and the native
+        path's copy of its state (_gx) in place, where that exists."""
+        self.grand = GlobalRand(self.randseed)
+        gx = getattr(self, "_gx", None)
+        if gx is not None:
+            gx[:] = self.grand.x
 
     def _run_boots(self, uw, nuw, seq_count, starts, sizes, postings, m):
         """All boots' (winner index, word count): native when available
@@ -443,84 +455,138 @@ def _row(label, c_strand, pred, ps, last_twc, cutoff) -> str:
                     ",".join(out) if out != ["*"] else "*", "\n"])
 
 
-def sintax(query_path: Optional[str], device: DeviceLike = None) -> None:
-    """-sintax: classify every query against -db; `device` is resolved
-    only when the card is chosen."""
-    from ..commands import load_db
-    o = options()
-    db, index = load_db(o.str("db"))
-    if index is None:
-        index = UDBIndex.from_seqdb(db)
-    if db.get_is_nucleo():
-        strand = o.str("strand", "")
-        if not strand:
-            raise SystemExit("Must specify -strand plus or both with nt db")
-        both = strand == "both"
-    else:
-        both = False   # amino DB: single plus-strand classify
-    cls = SintaxClassifier(db, index, GlobalRand(o.uns("randseed")))
-    cutoff = o.flt("sintax_cutoff")
-    on_card, reason = choose_device(cls, device)
-    dev_cls = None
-    if on_card:
-        from ..commands import _engine_device
-        from .sintax_device import SintaxTorchClassifier
-        dev_cls = SintaxTorchClassifier(cls, _engine_device(device))
+class SintaxRun:
+    """The -sintax command kept loaded: the -db database and its word
+    index, the classifier and, where choose_device() takes the card, the
+    classifier of the boots there with its incidence (on `device`, or
+    through commands._engine_device), all set up once from the options;
+    then classify_file() classifies one query file a call.
 
+    Each call restarts the tie-break RNG at -randseed (the classifier's
+    GlobalRand and the native path's copy of its state), so its rows are
+    the bytes one fresh sintax command writes for the same database and
+    query file.
+
+    dev_stats holds the spans and counters of every call (obs.py):
+    sintax_parse (reading a window's records), sintax_tally (on the card's
+    path the host tally, the strand vote and the rows; on the host path the
+    rows) and the counter sintax_queries, a window each; on the card's path
+    also SintaxTorchClassifier's (amplicon/sintax_device.py).  While
+    torch.profiler records, each span is a usearch.* range."""
+
+    def __init__(self, device: DeviceLike = None) -> None:
+        from ..commands import load_db
+        o = options()
+        db, index = load_db(o.str("db"))
+        if index is None:
+            index = UDBIndex.from_seqdb(db)
+        if db.get_is_nucleo():
+            strand = o.str("strand", "")
+            if not strand:
+                raise SystemExit(
+                    "Must specify -strand plus or both with nt db")
+            self.both = strand == "both"
+        else:
+            self.both = False   # amino DB: single plus-strand classify
+        self.cls = cls = SintaxClassifier(db, index,
+                                          GlobalRand(o.uns("randseed")))
+        self.cutoff = o.flt("sintax_cutoff")
+        self.on_card, self.reason = choose_device(cls, device)
+        self.dev_cls = None
+        if self.on_card:
+            from ..commands import _engine_device
+            from .sintax_device import SintaxTorchClassifier
+            self.dev_cls = SintaxTorchClassifier(cls, _engine_device(device))
+        # the window path: the card's, or the native library's
+        self.windowed = (self.dev_cls is not None
+                         or cls.classify_window([], self.both) is not None)
+        self.dev_stats = {} if self.dev_cls is None else self.dev_cls.stats
+        self.seq = 0
+
+    def classify_file(self, query_path: Optional[str], out) -> int:
+        """Classify every record of query_path, writing the -tabbedout rows
+        to out (a text file, or None); returns the number of queries."""
+        self.cls.restart_rng()
+        self.seq += 1
+        if not self.windowed:
+            return _classify_each(self.cls, query_path, self.both,
+                                  self.cutoff, out)
+        trace = obs.profiling()
+        if self.dev_cls is not None:
+            self.dev_cls.trace, self.dev_cls.seq = trace, self.seq
+        return self._windows(query_path, out, trace)
+
+    def _windows(self, query_path, out, trace: bool) -> int:
+        """Windows of WINDOW queries: the card's boots, then its tally and
+        the rows in one sintax_tally span; or the native library's
+        classify_window, then the rows in that span."""
+        from ..io.fastx import read_fastx
+        cls, st, seq = self.cls, self.dev_stats, self.seq
+        cutoff = self.cutoff
+        records = read_fastx(query_path, stream=True)
+        n = 0
+        while True:
+            labels, seqs = [], []
+            with obs.span(st, "sintax_parse", trace, seq):
+                for label, s, _q in records:
+                    if len(s) == 0:
+                        continue
+                    labels.append(label)
+                    seqs.append(s)
+                    if len(seqs) >= WINDOW:
+                        break
+            if not seqs:
+                return n
+            n += len(seqs)
+            obs.add(st, "sintax_queries", len(seqs))
+            if self.dev_cls is not None:
+                boots = self.dev_cls.boots(seqs, self.both)
+            else:
+                res = cls.classify_window(seqs, self.both)
+            with obs.span(st, "sintax_tally", trace, seq):
+                if self.dev_cls is not None:
+                    res = self.dev_cls.tally(*boots, self.both)
+                if out is None:
+                    continue
+                lines = []
+                for label, (c_strand, ids, counts, last_twc) in zip(labels,
+                                                                     res):
+                    if last_twc == 0 or not ids:
+                        lines.append(_row(label, c_strand, [], [], 0,
+                                          cutoff))
+                    else:
+                        pred, ps = cls.pred_from_tally(ids, counts)
+                        lines.append(_row(label, c_strand, pred, ps,
+                                          last_twc, cutoff))
+                out.write("".join(lines))
+
+
+def sintax(query_path: Optional[str], device: DeviceLike = None) -> None:
+    """-sintax: classify every query against -db through one SintaxRun;
+    `device` is resolved only when the card is chosen."""
+    o = options()
+    run = SintaxRun(device)
     f = open(o.str("tabbedout"), "w") if o.filled("tabbedout") else None
     try:
-        if dev_cls is not None or cls.classify_window([], both) is not None:
-            n = _classify_windows(cls, dev_cls, query_path, both, cutoff, f)
-            _write_stats(dev_cls is not None, reason, n, index.seq_count)
-        else:
-            _classify_each(cls, query_path, both, cutoff, f)
+        n = run.classify_file(query_path, f)
     finally:
         if f:
             f.close()
+    if run.windowed:
+        _write_stats(run.dev_cls is not None, run.reason, n,
+                     run.cls.index.seq_count, run.dev_stats)
 
 
-def _classify_windows(cls, dev_cls, query_path, both, cutoff, f) -> int:
-    """Windows of WINDOW queries through classify_window; returns the
-    number of queries classified."""
-    labels, seqs = [], []
-
-    def flush():
-        res = (dev_cls or cls).classify_window(seqs, both)
-        if f is not None:
-            rows = []
-            for label, (c_strand, ids, counts, last_twc) in zip(labels, res):
-                if last_twc == 0 or not ids:
-                    rows.append(_row(label, c_strand, [], [], 0, cutoff))
-                else:
-                    pred, ps = cls.pred_from_tally(ids, counts)
-                    rows.append(_row(label, c_strand, pred, ps, last_twc,
-                                     cutoff))
-            f.write("".join(rows))
-        labels.clear()
-        seqs.clear()
-
-    n = 0
-    from ..io.fastx import read_fastx
-    for label, seq, _q in read_fastx(query_path, stream=True):
-        if len(seq) == 0:
-            continue
-        labels.append(label)
-        seqs.append(seq)
-        n += 1
-        if len(seqs) >= WINDOW:
-            flush()
-    flush()
-    return n
-
-
-def _classify_each(cls, query_path, both, cutoff, f) -> None:
+def _classify_each(cls, query_path, both, cutoff, f) -> int:
     """One query at a time, where no window path exists (no native
-    library, or a hashed index)."""
+    library, or a hashed index); returns the number of queries."""
     from ..alpha import revcomp
     from ..io.fastx import read_fastx
+    n = 0
     for label, seq, _q in read_fastx(query_path, stream=True):
         if len(seq) == 0:
             continue
+        n += 1
         pred_f, ps_f, twc_f = cls.classify(seq)
         if both:
             pred_r, ps_r, twc_r = cls.classify(revcomp(seq))
@@ -535,15 +601,16 @@ def _classify_each(cls, query_path, both, cutoff, f) -> None:
         last_twc = twc_r if both else twc_f
         if f is not None:
             f.write(_row(label, c_strand, pred, ps, last_twc, cutoff))
+    return n
 
 
-def _write_stats(device: bool, reason: str, queries: int,
-                 targets: int) -> None:
+def _write_stats(device: bool, reason: str, queries: int, targets: int,
+                 stats: dict) -> None:
     """The USEARCH_DEVICE_STATS record of the run, with the reason for the
-    device choice."""
+    device choice and the run's spans and counters (SintaxRun.dev_stats)."""
     path = os.environ.get("USEARCH_DEVICE_STATS")
     if path:
         with open(path, "a") as sf:
             sf.write(json.dumps({"cmd": "sintax", "device": device,
                                  "reason": reason, "queries": queries,
-                                 "targets": targets}) + "\n")
+                                 "targets": targets, **stats}) + "\n")

@@ -23,6 +23,19 @@ classify_window therefore equals SintaxClassifier.classify_window tuple
 for tuple.  The chunks run in this process (TorchBootEngine) or on the
 resident server (ServerBootEngine, device_server.py), which keeps the
 incidence of a DB across command runs; only the former imports torch.
+
+SintaxTorchClassifier counts its stages in `stats` (obs.py), which
+amplicon/sintax.py:SintaxRun exposes as its dev_stats: the spans
+sintax_prepare (unique words, m, the tie-break draws and the chunks' host
+arrays), inside it sintax_draws (the draws alone), sintax_boots (the
+chunks' run_chunk calls: upload, kernels, copy back) and sintax_tally (host
+tally and strand vote, in classify_window; SintaxRun's also holds the rows),
+a span each a window; the device time sintax_boot_device_ns/_n (a
+DeviceTimer around each chunk's kernels in this process: CUDA events while
+the profiler records, the host clock on the CPU); the counters
+sintax_jobs, sintax_chunks, sintax_words (the jobs' unique words summed)
+and sintax_launches (the kernels' launches in this process; 0 through the
+server).
 """
 
 from __future__ import annotations
@@ -31,6 +44,7 @@ from typing import TYPE_CHECKING, List
 
 import numpy as np
 
+from .. import obs
 from .sintax import SintaxClassifier, _next_rand, ineligible
 
 if TYPE_CHECKING:
@@ -69,9 +83,10 @@ class TorchBootEngine:
                 accumulate=True)
         self.inc_absmax = max(int(self.w_mat.max()), -int(self.w_mat.min()))
 
-    def run_chunk(self, words, nuw, m, stream, rr):
+    def run_chunk(self, words, nuw, m, stream, rr, timer=None):
         """(cq, uwmax) words -> (winners, tops) numpy (cq, B) int32.
-        stream and rr are uint32 numpy arrays."""
+        stream and rr are uint32 numpy arrays; timer, an obs.DeviceTimer,
+        times the boot step between the upload and the copy back."""
         import torch
 
         from ..ops.sintax_boot import boot_step
@@ -80,11 +95,15 @@ class TorchBootEngine:
             return torch.from_numpy(
                 np.ascontiguousarray(x).view(np.int32)).to(self.device)
 
-        winner, top = boot_step(
-            up(np.asarray(words, np.int32)), up(np.asarray(nuw, np.int32)),
-            up(np.asarray(m, np.int32)), up(np.asarray(stream, np.uint32)),
-            up(np.asarray(rr, np.uint32)), self.w_mat, self.B,
-            self.inc_absmax)
+        args = (up(np.asarray(words, np.int32)),
+                up(np.asarray(nuw, np.int32)), up(np.asarray(m, np.int32)),
+                up(np.asarray(stream, np.uint32)),
+                up(np.asarray(rr, np.uint32)))
+        if timer is not None:
+            timer.start()
+        winner, top = boot_step(*args, self.w_mat, self.B, self.inc_absmax)
+        if timer is not None:
+            timer.stop()
         return winner.cpu().numpy(), top.cpu().numpy()
 
 
@@ -99,7 +118,7 @@ class ServerBootEngine:
         self.sig = sig
         self.loader = loader
 
-    def run_chunk(self, words, nuw, m, stream, rr):
+    def run_chunk(self, words, nuw, m, stream, rr, timer=None):
         return self.client.sintax_boots(self.sig, words, nuw, m, stream, rr,
                                         self.loader)
 
@@ -118,6 +137,11 @@ class SintaxTorchClassifier:
         self.t = self.index.seq_count
         self._stream = None
         self._stream_len = 0
+        self.stats = {}
+        # set by the caller for each query file: whether the profiler
+        # records (obs.profiling()) and the file's number
+        self.trace, self.seq = False, None
+        self.device = None
         db = (self.index.params.slot_count, self.t,
               np.asarray(self.index.sizes), np.asarray(self.index.postings),
               int(cls.boots))
@@ -129,6 +153,7 @@ class SintaxTorchClassifier:
                                  db)))
         else:
             self._engine = TorchBootEngine(*db, device)
+            self.device = self._engine.device
 
     @classmethod
     def usable(cls, sc: SintaxClassifier) -> bool:
@@ -150,14 +175,20 @@ class SintaxTorchClassifier:
     def classify_window(self, seqs: List[np.ndarray], both: bool):
         """The contract of SintaxClassifier.classify_window: per query
         (strand, tax ids, counts, last top word count)."""
+        if not seqs:
+            return []
+        per_q, winners, tops = self.boots(seqs, both)
+        with obs.span(self.stats, "sintax_tally", self.trace, self.seq):
+            return self.tally(per_q, winners, tops, both)
+
+    def _prepare(self, seqs, both: bool):
+        """(per_q, jobs, chunk arrays or None) of a window: per (query,
+        strand) the unique words and the picks a boot m, B tie-break draws
+        a job in job order, and the chunks' padded host arrays."""
         from ..alpha import revcomp
         cls = self.cls
         params = self.index.params
         B = cls.boots
-        n = len(seqs)
-        if n == 0:
-            return []
-
         # per (query, strand): unique words + per-boot sample size m
         jobs = []     # (qi, strand_idx, uw, m)
         per_q = []    # [(fwd_job_ix or None, rev_job_ix or None)]
@@ -174,50 +205,91 @@ class SintaxTorchClassifier:
                 jobs.append((qi, si, uw, m))
                 ixs.append(len(jobs) - 1)
             per_q.append(ixs + [None] * (2 - len(ixs)))
-
         nj = len(jobs)
-        winners = np.zeros((nj, B), np.int32)
-        tops = np.zeros((nj, B), np.int32)
-        if nj:
-            m_all = np.array([j[3] for j in jobs], np.int32)
-            # the stream length in powers of two, so that chunk shapes
-            # repeat from window to window
-            mmax = 8
-            while mmax < int(m_all.max()):
-                mmax *= 2
-            stream = self._lcg_stream(B * mmax).astype(np.uint32)
-            # tie-break draws: B per job, taken in job order, the order
-            # of the host's per-strand classify (m == 0 draws too)
+        if not nj:
+            return per_q, jobs, None
+        m_all = np.array([j[3] for j in jobs], np.int32)
+        # the stream length in powers of two, so that chunk shapes
+        # repeat from window to window
+        mmax = 8
+        while mmax < int(m_all.max()):
+            mmax *= 2
+        stream = self._lcg_stream(B * mmax).astype(np.uint32)
+        # tie-break draws: B per job, taken in job order, the order of
+        # the host's per-strand classify (m == 0 draws too)
+        with obs.span(self.stats, "sintax_draws", self.trace, self.seq):
             rr = np.empty((nj, B), np.uint32)
             for ji in range(nj):
                 for b in range(B):
                     rr[ji, b] = cls.grand.randu32()
-            uwmax_n = max(int(max(len(j[2]) for j in jobs)), 8)
-            uwmax = 1 << int(np.ceil(np.log2(uwmax_n)))
-            cq = self.chunk_q
+        uwmax_n = max(int(max(len(j[2]) for j in jobs)), 8)
+        uwmax = 1 << int(np.ceil(np.log2(uwmax_n)))
+        cq = self.chunk_q
+        padded = -(-nj // cq) * cq
+        words = np.zeros((padded, uwmax), np.int32)
+        nuw_a = np.ones(padded, np.int32)
+        m_a = np.ones(padded, np.int32)
+        rr_a = np.zeros((padded, B), np.uint32)
+        for k, job in enumerate(jobs):
+            uw = job[2]
+            words[k, :len(uw)] = uw
+            nuw_a[k] = len(uw)
+        m_a[:nj] = m_all
+        rr_a[:nj] = rr
+        return per_q, jobs, (words, nuw_a, m_a, stream, rr_a)
+
+    def boots(self, seqs, both: bool):
+        """(per_q, winners, tops) of a window: its jobs' boots, chunk by
+        chunk, on the engine."""
+        st, tr, seq = self.stats, self.trace, self.seq
+        B = self.cls.boots
+        with obs.span(st, "sintax_prepare", tr, seq):
+            per_q, jobs, arrays = self._prepare(seqs, both)
+        nj = len(jobs)
+        winners = np.zeros((nj, B), np.int32)
+        tops = np.zeros((nj, B), np.int32)
+        cq = self.chunk_q
+        obs.add(st, "sintax_jobs", nj)
+        obs.add(st, "sintax_chunks", -(-nj // cq))
+        obs.add(st, "sintax_words", sum(len(j[2]) for j in jobs))
+        if arrays is None:
+            return per_q, winners, tops
+        words, nuw_a, m_a, stream, rr_a = arrays
+        eng = self._engine
+        with obs.span(st, "sintax_boots", tr, seq):
+            n0 = self._launches()
             for lo in range(0, nj, cq):
                 hi = min(lo + cq, nj)
-                c = hi - lo
-                words = np.zeros((cq, uwmax), np.int32)
-                nuw_a = np.ones(cq, np.int32)
-                m_a = np.ones(cq, np.int32)
-                rr_a = np.zeros((cq, B), np.uint32)
-                for k in range(c):
-                    uw = jobs[lo + k][2]
-                    words[k, :len(uw)] = uw
-                    nuw_a[k] = len(uw)
-                    m_a[k] = jobs[lo + k][3]
-                    rr_a[k] = rr[lo + k]
-                w_np, t_np = self._engine.run_chunk(words, nuw_a, m_a,
-                                                    stream, rr_a)
-                winners[lo:hi] = w_np[:c]
-                tops[lo:hi] = t_np[:c]
+                timer = None if self.device is None else \
+                    obs.DeviceTimer(self.device, tr)
+                w_np, t_np = eng.run_chunk(
+                    words[lo:lo + cq], nuw_a[lo:lo + cq], m_a[lo:lo + cq],
+                    stream, rr_a[lo:lo + cq], timer)
+                winners[lo:hi] = w_np[:hi - lo]
+                tops[lo:hi] = t_np[:hi - lo]
+                ns = None if timer is None else timer.ns()
+                if ns is not None:
+                    obs.add(st, "sintax_boot_device_ns", ns)
+                    obs.add(st, "sintax_boot_device_n", 1)
+            obs.add(st, "sintax_launches", self._launches() - n0)
+        return per_q, winners, tops
 
-        # host tally and strand vote (as SintaxClassifier.classify)
+    def _launches(self) -> int:
+        """The boot kernels' launches in this process so far (none where
+        the server runs the chunks, and torch is not imported)."""
+        if self.device is None:
+            return 0
+        from ..ops import sintax_boot
+        return (sintax_boot.pick_hist.launches
+                + sintax_boot.boot_count_select.launches)
+
+    def tally(self, per_q, winners, tops, both: bool):
+        """Host tally and strand vote (as SintaxClassifier.classify)."""
         from ..search.hitmgr import quick_sort_order
+        cls = self.cls
+        B = cls.boots
         res = []
-        for qi in range(n):
-            fwd_ix, rev_ix = per_q[qi][0], per_q[qi][1]
+        for fwd_ix, rev_ix in per_q:
 
             def strand_result(ji):
                 if ji is None:

@@ -27,15 +27,17 @@ incidence of a DB across command runs; only the former imports torch.
 SintaxTorchClassifier counts its stages in `stats` (obs.py), which
 amplicon/sintax.py:SintaxRun exposes as its dev_stats: the spans
 sintax_prepare (unique words, m, the tie-break draws and the chunks' host
-arrays), inside it sintax_draws (the draws alone), sintax_boots (the
-chunks' run_chunk calls: upload, kernels, copy back) and sintax_tally (host
-tally and strand vote, in classify_window; SintaxRun's also holds the rows),
-a span each a window; the device time sintax_boot_device_ns/_n (a
-DeviceTimer around each chunk's kernels in this process: CUDA events while
-the profiler records, the host clock on the CPU); the counters
-sintax_jobs, sintax_chunks, sintax_words (the jobs' unique words summed)
-and sintax_launches (the kernels' launches in this process; 0 through the
-server).
+arrays), inside it sintax_draws (the draws alone, one call of the C
+runtime a window), sintax_boots (the chunks' run_chunk calls: upload,
+kernels, copy back) and sintax_tally (host tally and strand vote, in
+classify_window; SintaxRun's also holds the rows), a span each a window;
+the device time sintax_boot_device_ns/_n (a DeviceTimer around each chunk's
+kernels in this process: CUDA events while the profiler records, the host
+clock on the CPU); the counters sintax_jobs, sintax_chunks, sintax_words
+(the jobs' unique words summed), sintax_launches (the kernels' launches in
+this process; 0 through the server) and sintax_draws_native (the windows
+whose draws the C runtime made; the others took the Python loop, where the
+library is not built).
 """
 
 from __future__ import annotations
@@ -215,28 +217,44 @@ class SintaxTorchClassifier:
         while mmax < int(m_all.max()):
             mmax *= 2
         stream = self._lcg_stream(B * mmax).astype(np.uint32)
-        # tie-break draws: B per job, taken in job order, the order of
-        # the host's per-strand classify (m == 0 draws too)
-        with obs.span(self.stats, "sintax_draws", self.trace, self.seq):
-            rr = np.empty((nj, B), np.uint32)
-            for ji in range(nj):
-                for b in range(B):
-                    rr[ji, b] = cls.grand.randu32()
-        uwmax_n = max(int(max(len(j[2]) for j in jobs)), 8)
-        uwmax = 1 << int(np.ceil(np.log2(uwmax_n)))
         cq = self.chunk_q
         padded = -(-nj // cq) * cq
+        # tie-break draws: B per job, taken in job order, the order of
+        # the host's per-strand classify (m == 0 draws too)
+        rr_a = np.zeros((padded, B), np.uint32)
+        with obs.span(self.stats, "sintax_draws", self.trace, self.seq):
+            self._draw(rr_a[:nj])
+        uwmax_n = max(int(max(len(j[2]) for j in jobs)), 8)
+        uwmax = 1 << int(np.ceil(np.log2(uwmax_n)))
         words = np.zeros((padded, uwmax), np.int32)
         nuw_a = np.ones(padded, np.int32)
         m_a = np.ones(padded, np.int32)
-        rr_a = np.zeros((padded, B), np.uint32)
         for k, job in enumerate(jobs):
             uw = job[2]
             words[k, :len(uw)] = uw
             nuw_a[k] = len(uw)
         m_a[:nj] = m_all
-        rr_a[:nj] = rr
         return per_q, jobs, (words, nuw_a, m_a, stream, rr_a)
+
+    def _draw(self, out: np.ndarray) -> None:
+        """out (C-contiguous uint32) <- the next out.size draws of the
+        classifier's GlobalRand, in order, its state advanced: one call of
+        the C runtime (counted in sintax_draws_native) where it is built,
+        else a Python call a draw."""
+        from ..native import get_lib
+        if out.dtype != np.uint32 or not out.flags.c_contiguous:
+            raise ValueError("the draws go to a C-contiguous uint32 array")
+        grand = self.cls.grand
+        lib = get_lib()
+        if lib is None:
+            flat = out.reshape(-1)
+            for k in range(flat.size):
+                flat[k] = grand.randu32()
+            return
+        gx = np.array(grand.x, np.uint64)
+        lib.sintax_grand_draws_c(gx.ctypes.data, out.ctypes.data, out.size)
+        grand.x[:] = gx.tolist()
+        obs.add(self.stats, "sintax_draws_native", 1)
 
     def boots(self, seqs, both: bool):
         """(per_q, winners, tops) of a window: its jobs' boots, chunk by

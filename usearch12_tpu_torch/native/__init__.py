@@ -252,6 +252,8 @@ def get_lib():
             vp, vp, i64, vp, vp, ctypes.c_uint32,
             ctypes.c_int, ctypes.c_int, ctypes.c_uint32, vp,
             vp, vp, vp, vp, vp, vp]
+        lib.sintax_grand_draws_c.restype = None
+        lib.sintax_grand_draws_c.argtypes = [vp, vp, i64]
         lib.ee_sum_c.restype = ctypes.c_double
         lib.ee_sum_c.argtypes = [ctypes.c_char_p, i64, vp]
         lib.merge_pair_c.restype = i64

@@ -1251,6 +1251,18 @@ static inline uint64_t sintax_grand_inc(uint64_t *x)
     return x[0];
 }
 
+/* The next n draws of that RNG (GlobalRand.randu32), in order, into out;
+ * grand_x is left advanced in place.  The card path's tie-break draws of a
+ * window (amplicon/sintax_device.py). */
+void sintax_grand_draws_c(uint64_t *grand_x, uint32_t *out, int64_t n)
+{
+    uint64_t x[5];
+    memcpy(x, grand_x, sizeof x);
+    for (int64_t i = 0; i < n; ++i)
+        out[i] = (uint32_t)sintax_grand_inc(x);
+    memcpy(grand_x, x, sizeof x);
+}
+
 /* QuickSortOrderDesc (reference sort.h model): Hoare partition around
  * the middle element; identical swap sequence => identical tie order. */
 static void sx_qsort_desc(const int32_t *vals, int32_t *order,

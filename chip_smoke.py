@@ -1531,12 +1531,13 @@ def rank_kernel(ranker, qw, cap, q, n_pos, dev):
     import numpy as np
     import torch
     from usearch12_tpu_torch.ops.csr_rank import csr_rank_big
-    meta, spill_total, spills = ranker.kernel_meta(qw, cap)
+    half = ranker.dev
+    meta, spill_total, spills = half.kernel_meta(qw, cap)
     m = torch.from_numpy(meta).to(dev)
     kernel_ms, out = cuda_ms(lambda: csr_rank_big(
-        ranker._starts, ranker._sizes, ranker._postings, m, cap, ranker.t,
+        half._starts, half._sizes, half._postings, m, cap, ranker.t,
         ranker.topk, spill_total), 10)
-    plain_ms, plain = cuda_ms(lambda: ranker.rank_plain(q, cap), 3)
+    plain_ms, plain = cuda_ms(lambda: half.rank_plain(q, cap), 3)
     K = ranker.topk
     o = out.cpu().numpy().astype(np.int64)
     want = np.concatenate([x.cpu().numpy().reshape(len(o), -1)
@@ -1581,12 +1582,13 @@ def rank_stages(udb, qf, opts, dev):
     _n, chunks, _over = ranker.prepare_chunks(jbuf, j_off[:RANK_WINDOW + 1])
     _lo, _hi, qw, cap = chunks[0]
     q = torch.from_numpy(qw).to(dev)
-    hits_ms, hits = cuda_ms(lambda: ranker.hits(q, cap), 10)
-    count_ms, count = cuda_ms(lambda: ranker.counts(hits), 10)
+    half = ranker.dev
+    hits_ms, hits = cuda_ms(lambda: half.hits(q, cap), 10)
+    count_ms, count = cuda_ms(lambda: half.counts(hits), 10)
     if ranker.big:
-        rank_ms, _ = cuda_ms(lambda: ranker.rank_big(count, hits), 10)
+        rank_ms, _ = cuda_ms(lambda: half.rank_big(count, hits), 10)
     else:
-        rank_ms, _ = cuda_ms(lambda: ranker.rank_sorted(count), 10)
+        rank_ms, _ = cuda_ms(lambda: half.rank_sorted(count), 10)
     TP = count.shape[1]
     rows = torch.arange(q.shape[0], device=dev)[:, None] * TP
     lib_ms, _ = cuda_ms(lambda: torch.bincount((rows + hits).reshape(-1),

@@ -265,7 +265,8 @@ def test_over_cap_cli_counts_host_reranks(ranked_db, tmp_path, monkeypatch):
     port = lambda a: port_cli.main(a, device="cpu")  # noqa: E731
     host = _search(port, tmp_path / "host", args + ["-no_device_rank"],
                    ["blast6out"], monkeypatch=monkeypatch)
-    monkeypatch.setattr(csr_rank.CSRDeviceRanker, "CAP_MAX", 200)
+    # the command's ranker is the host half on the card's device half
+    monkeypatch.setattr(csr_rank.CSRRanker, "CAP_MAX", 200)
     stats = tmp_path / "stats.jsonl"
     card = _search(port, tmp_path / "card", args + ["-device_rank"],
                    ["blast6out"], stats, monkeypatch)
@@ -414,7 +415,7 @@ def test_kernel_meta_places_device_memory_tables(big_db, monkeypatch,
     _n, chunks, _over = ranker.prepare_chunks(jbuf, j_off)
     qw, cap = chunks[0][2], chunks[0][3]
     monkeypatch.setattr(csr_rank, "SMEM_HITS", smem_hits)
-    meta, spill_total, spills = ranker.kernel_meta(qw, cap)
+    meta, spill_total, spills = ranker.dev.kernel_meta(qw, cap)
     B, wmax = qw.shape
     assert np.array_equal(meta[:, :wmax], qw)
     hits = np.minimum(ranker._sizes_np[qw].sum(1), cap)

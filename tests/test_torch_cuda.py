@@ -234,7 +234,7 @@ def test_sintax_resident_on_the_card_writes_the_commands_bytes(card,
     db, q1, q2 = _data(tmp_path, 5)
     argv = _argv(db, "-sintax_device")
     got, run = _resident(argv, [q1, q2, q1], device=card)
-    assert run.on_card and run.dev_cls.device == card
+    assert run.on_card and run.dev_cls._engine.device == card
     host = [_command(tmp_path, q, _argv(db, "-no_sintax_device"))
             for q in (q1, q2)]
     assert got == [host[0], host[1], host[0]]
@@ -543,21 +543,22 @@ def _csr(rng, V, T, size_lo, size_hi, pool):
 def _kernel_vs_plain(card, csr, T, qw, cap, topk=64):
     """run_chunk of the kernel route on the card against the torch ops on
     the CPU: counts, targets and nextv bit for bit, and rank_touched.
-    Returns the card ranker's stats and its (counts, targets, nextv)."""
-    from usearch12_tpu_torch.ops.csr_rank import CSRDeviceRanker, csr_rank_big
-    rankers = [CSRDeviceRanker.from_arrays(T, *csr, topk, 0, True, d)
-               for d in (card, torch.device("cpu"))]
-    assert rankers[0]._kernel and not rankers[1]._kernel
+    Returns the card half's stats and its (counts, targets, nextv)."""
+    from usearch12_tpu_torch.card import LocalCard
+    from usearch12_tpu_torch.ops.csr_rank import csr_rank_big
+    halves = [LocalCard(d).build("csr_chunks", T, *csr, topk, 0, True)
+              for d in (card, torch.device("cpu"))]
+    assert halves[0].whole_windows and not halves[1].whole_windows
+    stats = [{}, {}]
     n0 = csr_rank_big.launches
-    got, want = (r.run_chunk(qw, cap) for r in rankers)
+    got, want = (h.run_chunk(qw, cap, st) for h, st in zip(halves, stats))
     torch.cuda.synchronize()
     assert csr_rank_big.launches == n0 + 1
     for x, y in zip(got, want):
         assert x.dtype == y.dtype and np.array_equal(x, y)
-    assert rankers[0].stats["rank_touched"] == \
-        rankers[1].stats["rank_touched"]
-    assert rankers[0].stats["rank_kernel_launches"] == 1
-    return rankers[0].stats, got
+    assert stats[0]["rank_touched"] == stats[1]["rank_touched"]
+    assert stats[0]["rank_kernel_launches"] == 1
+    return stats[0], got
 
 
 def _pow2(n):
@@ -679,7 +680,7 @@ def test_csr_ranker_clade_db_window(card, tmp_path):
     j_off = np.zeros(len(seqs) + 1, np.int64)
     np.cumsum([len(s) for s in seqs], out=j_off[1:])
     ranker = CSRDeviceRanker(index, card)
-    assert ranker._kernel and ranker.chunk_b == ranker.WINDOW
+    assert ranker.dev.whole_windows and ranker.chunk_b == ranker.WINDOW
     ranker.rank_window(jbuf, j_off)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated(card)
@@ -694,7 +695,7 @@ def test_csr_ranker_clade_db_window(card, tmp_path):
     assert ranker.stats["rank_kernel_launches"] == 2
     assert ranker.stats["rank_touched"] == 2 * cpu.stats["rank_touched"]
     assert (got[1][:, 0] > 1).mean() > 0.9
-    assert peak < len(seqs) * (1 << ranker.t_bits) * 8 // 4
+    assert peak < len(seqs) * (1 << ranker.dev.t_bits) * 8 // 4
 
 
 @pytest.mark.parametrize("n_queries,n_targets", [(64, 296), (5, 13)])
@@ -854,6 +855,15 @@ def test_align_sharded_on_card_matches_align(card):
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def index_of(v, t, sizes, postings):
+    """What names a DB of these CSR arrays on the server (db_signature):
+    an index's word slots, targets and postings."""
+    from types import SimpleNamespace
+    return SimpleNamespace(params=SimpleNamespace(slot_count=v),
+                           seq_count=t, sizes=np.asarray(sizes),
+                           postings=np.asarray(postings))
+
+
 def start_server(tmp, device="cpu", idle=60.0):
     """A server of this checkout on `device`, its socket under `tmp` (as
     a client with TMPDIR=tmp finds it), answering: (process, client)."""
@@ -906,14 +916,15 @@ def card_server():
 
 @pytest.mark.parametrize("radius", [16, 120])
 def test_server_align_equals_in_process(card, card_server, radius):
-    """align on the server (op align, one launch of each hole DP kernel a
-    class) is bit-equal to TorchWaveAligner in this process, for two
-    terminal-penalty classes."""
+    """align on the server card's aligner (op align, one launch of each
+    hole DP kernel a class) is bit-equal to TorchWaveAligner in this
+    process, for two terminal-penalty classes."""
+    from usearch12_tpu_torch.card import ServerCard
     ap = wnw.nucleo_params(-10.3, -1.1, -0.7, -0.4)
     pairs = _pairs(radius, 200, 50, 1200)
     for cls in (0, 5):
         n0 = card_server.ping()["launches"]
-        s_srv, p_srv = ds.ServerClassAligner(card_server, ap, cls).align(
+        s_srv, p_srv = ServerCard(card_server).aligner(ap, cls).align(
             pairs, radius)
         n1 = card_server.ping()["launches"]
         s_in, p_in = wnw.TorchWaveAligner(ap.hole_params(
@@ -929,10 +940,12 @@ def test_server_align_equals_in_process(card, card_server, radius):
 @pytest.mark.parametrize("m_val,mmax", [(32, 32), (200, 256), (3000, 4096)])
 def test_server_sintax_boots_equal_in_process(card, card_server, m_val,
                                               mmax):
-    """sintax_boots on the server's engine (sintax_load once) is
-    bit-equal to TorchBootEngine.run_chunk in this process; m > 2048
+    """sintax_boots on the server card's boot engine (sintax_load once)
+    is bit-equal to TorchBootEngine.run_chunk in this process; m > 2048
     included."""
     from usearch12_tpu_torch.amplicon.sintax_device import TorchBootEngine
+    from usearch12_tpu_torch.card import ServerCard
+    from usearch12_tpu_torch.config import reset_options
     rng = np.random.default_rng(m_val)
     cq, boots, uwmax, v, t = 16, 20, 32, 256, 700
     sizes = rng.integers(0, 6, v)
@@ -950,9 +963,9 @@ def test_server_sintax_boots_equal_in_process(card, card_server, m_val,
     db = (v, t, sizes, posts, boots)
     chunk = (words, nuw, m, stream, rr)
     n0 = card_server.ping()
-    got = card_server.sintax_boots(
-        ("card", m_val), *chunk,
-        lambda: dict(zip(("v", "t", "sizes", "postings", "boots"), db)))
+    reset_options()
+    got = ServerCard(card_server).boot_engine(
+        index_of(*db[:4]), lambda: db[:4], boots).run_chunk(*chunk)
     n1 = card_server.ping()
     want = TorchBootEngine(*db, card).run_chunk(*chunk)
     assert all(np.array_equal(x, y) for x, y in zip(got, want))

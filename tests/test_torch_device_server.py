@@ -26,12 +26,13 @@ from tests.test_torch_csr_rank import (_host_big_lists, _jax_rank,
 from tests.test_torch_import import _run_blocked
 from tests.test_torch_sintax import _chunk_inputs, _jax_chunk
 from tests.test_torch_slice import gen_contigs
-from tests.test_torch_cuda import ROOT, start_server, stop_server
+from tests.test_torch_cuda import ROOT, index_of, start_server, stop_server
 from usearch12_tpu.align.oracle import banded_nw_main_diag
 from usearch12_tpu.scoring import AlnParams as JaxAlnParams
 from usearch12_tpu_torch import device_server as ds
+from usearch12_tpu_torch.card import ServerCard
 from usearch12_tpu_torch.config import reset_options
-from usearch12_tpu_torch.ops.csr_host import CSRServerRanker
+from usearch12_tpu_torch.ops.csr_host import CSRRanker
 from usearch12_tpu_torch.scoring import AlnParams
 
 __all__ = ["big_db", "ranked_db"]
@@ -75,15 +76,17 @@ def test_ping(server):
                                "sintax_pick_hist": 0,
                                "sintax_boot_count_select": 0}
     assert "torch_import_s" in rep["start"]
-    assert ds.ServerDevice(cli).type == "cpu"
+    card = ServerCard(cli)
+    assert card.type == "cpu" and card.remote and not card.warm
 
 
 @pytest.mark.parametrize("cls_bits", [0, 5])
 def test_align_equals_jax_oracle(server, cls_bits):
     """Scores and paths of two terminal-penalty classes through the
-    engine's facade (ServerClassAligner) equal the JAX oracle's with the
-    class's AlnParams (tests/test_device_server.py's pairs, with ends
-    trimmed so that terminal gaps count)."""
+    server card's aligner (one align_load a class, after the need_load of
+    its first align) equal the JAX oracle's with the class's AlnParams
+    (tests/test_device_server.py's pairs, with ends trimmed so that
+    terminal gaps count)."""
     _d, cli = server
     rng = np.random.default_rng(3 + cls_bits)
     pairs = []
@@ -92,9 +95,9 @@ def test_align_equals_jax_oracle(server, cls_bits):
         b = a.copy()
         b[rng.integers(0, 60, 6)] = CONV[rng.integers(0, 4, 6)]
         pairs.append((a, b[k % 3:60 - k // 3]))
-    n0 = cli.ping()["served"]["align"]
+    n0 = cli.ping()["served"]
     reset_options()
-    fa = ds.ServerClassAligner(cli, AlnParams.from_cmdline(True), cls_bits)
+    fa = ServerCard(cli).aligner(AlnParams.from_cmdline(True), cls_bits)
     scores, paths = fa.align(pairs, 8, nucleo=True)
     jap = JaxAlnParams.from_cmdline(nucleo=True).hole_params(
         *(bool(cls_bits & b) for b in (1, 2, 4, 8)))
@@ -103,17 +106,22 @@ def test_align_equals_jax_oracle(server, cls_bits):
         s0, p0 = banded_nw_main_diag(a, b, 8, jap)
         assert p == p0
         assert np.float32(s) == np.float32(s0)
-    assert cli.ping()["served"]["align"] == n0 + 1
+    n1 = cli.ping()["served"]
+    assert n1["align"] == n0["align"] + 2
+    assert n1["align_load"] == n0["align_load"] + 1
+    assert fa.align(pairs, 8, nucleo=True)[1] == paths
+    assert cli.ping()["served"]["align"] == n0["align"] + 3
 
 
 def test_csr_rank_equals_jax_at_or_below_big(server, ranked_db):
-    """csr_rank on the server's engine equals the JAX CSRDeviceRanker's
-    window on the CPU; the first chunk's need_load brings one csr_load."""
+    """The host half on the server card's device half (csr_rank) equals
+    the JAX CSRDeviceRanker's window on the CPU; the first chunk's
+    need_load brings one csr_load."""
     _d, cli = server
     db_fa, q_fa = ranked_db
     _db, index, seqs, jbuf, j_off = _port_setup(db_fa, q_fa)
     n0 = cli.ping()["served"]
-    ranker = CSRServerRanker(index, cli, ("below", db_fa), topk=64)
+    ranker = CSRRanker(index, ServerCard(cli), topk=64)
     assert not ranker.big
     got = ranker.rank_window(jbuf, j_off)
     want = _jax_rank(db_fa, q_fa, [], jbuf, j_off)
@@ -131,8 +139,7 @@ def test_csr_rank_above_big_equals_host_big(server, big_db):
     db_fa, q_fa = big_db
     _db, index, seqs, jbuf, j_off = _port_setup(db_fa, q_fa,
                                                 ["-big", "10"])
-    ranker = CSRServerRanker(index, cli, ("above", db_fa), topk=64,
-                             chunk_b=16)
+    ranker = CSRRanker(index, ServerCard(cli), topk=64, chunk_b=16)
     assert ranker.big
     cand, cnts, out_n, unc = ranker.rank_window(jbuf, j_off)
     assert not unc.any()
@@ -145,22 +152,24 @@ def test_csr_rank_above_big_equals_host_big(server, big_db):
 def test_need_load_for_an_unknown_signature(server):
     _d, cli = server
     qw = np.zeros((4, 8), np.int64)
-    assert cli._request({"op": "csr_rank", "sig": ("unknown",), "qw": qw,
-                         "cap": 64})["need_load"]
+    assert cli._request({"op": "csr_rank", "sig": ("unknown",),
+                         "args": (qw, 64)})["need_load"]
     assert cli._request({"op": "sintax_boots", "sig": ("unknown",),
-                         "words": qw})["need_load"]
+                         "args": (qw,)})["need_load"]
 
 
 @pytest.mark.parametrize("case", ["default_m32", "m_over_2048"])
 def test_sintax_boots_equal_jax(server, case):
-    """Winners and tops of one chunk on the server equal the JAX
-    BootEngine.run_chunk's, m > 2048 included."""
+    """Winners and tops of one chunk on the server card's boot engine
+    equal the JAX BootEngine.run_chunk's, m > 2048 included."""
     _d, cli = server
     db, chunk = _chunk_inputs(case)
     n0 = cli.ping()["served"]["sintax_load"]
-    w, t = cli.sintax_boots(
-        ("case", case), *chunk,
-        lambda: dict(zip(("v", "t", "sizes", "postings", "boots"), db)))
+    reset_options()
+    eng = ServerCard(cli).boot_engine(index_of(*db[:4]), lambda: db[:4],
+                                      db[4])
+    assert eng.timer(True) is None and eng.launches == 0
+    w, t = eng.run_chunk(*chunk)
     want = _jax_chunk(case)
     assert w.dtype == np.int32 and t.dtype == np.int32
     np.testing.assert_array_equal(w, want[0])

@@ -3,6 +3,7 @@ with the card has none) nor the JAX package usearch12_tpu, whose host
 layers it keeps its own copy of.  Its commands run in processes where
 both cannot be imported, and write the JAX package's bytes."""
 
+import ast
 import os
 import pkgutil
 import re
@@ -198,3 +199,66 @@ def test_no_import_in_sources(name):
         "from usearch12_tpu_torch.cli import main\n"
         "'usearch12_tpu/ops/wavefront_nw.py:544'\n"
         'f_log.write(" ".join(["usearch12_tpu"] + argv))')
+
+
+# the layers below the command layer (commands.py, cli.py)
+LOWER = ("amplicon", "parallel", "engine", "ops", "index", "io", "search",
+         "align", "cluster", "fastq", "out")
+# the route to the card is card.py's decision (and the server's, behind it)
+ROUTE_NAMES = re.compile(r"\b(is_server|server_warm|ServerDevice|"
+                         r"CSRServerRanker|ServerBootEngine|"
+                         r"ServerClassAligner)\b")
+
+
+def _imported(path):
+    """The absolute names of the modules a source file of the port
+    imports (`from P import n` counts P and P.n)."""
+    pkg = os.path.relpath(path, ROOT)[:-3].replace(os.sep, ".").rsplit(
+        ".", 1)[0]
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = node.module or ""
+            if node.level:
+                up = pkg.split(".")[:len(pkg.split(".")) - node.level + 1]
+                base = ".".join(up + ([base] if base else []))
+            yield base
+            yield from (f"{base}.{a.name}" for a in node.names)
+
+
+def _sources(*dirs):
+    return [os.path.join(d, f) for top in dirs
+            for d, _, fs in os.walk(os.path.join(PKG, top))
+            for f in fs if f.endswith(".py")]
+
+
+@pytest.mark.parametrize("rule", ["lower_layers_import_no_commands",
+                                  "one_module_routes_the_card"])
+def test_card_routing_design(rule):
+    """The arrows between the port's layers point down: nothing under the
+    lower layers imports commands or cli.  And only card.py (with the
+    server behind it) knows which route the card's work takes: no other
+    module names the server's route."""
+    if rule == "lower_layers_import_no_commands":
+        files = _sources(*LOWER)
+        assert len(files) >= 50
+        up = {"usearch12_tpu_torch.commands", "usearch12_tpu_torch.cli"}
+        for path in files:
+            assert not up & set(_imported(path)), path
+        probe = os.path.join(PKG, "amplicon", "sintax.py")
+        assert "usearch12_tpu_torch.index.udbfile.load_db" in set(
+            _imported(probe))
+    else:
+        files = _sources("")
+        assert len(files) >= 60
+        for path in files:
+            if os.path.basename(path) in ("card.py", "device_server.py"):
+                continue
+            with open(path) as f:
+                m = ROUTE_NAMES.search(f.read())
+            assert m is None, (path, m and m.group(0))
+        assert ROUTE_NAMES.search("if getattr(dev, 'server_warm', False):")
+

@@ -105,7 +105,7 @@ def otutab(query_path: Optional[str]) -> None:
     from ..search.driver import search_file
     from ..search.hitmgr import HitMgr
     o = options()
-    from ..commands import load_db
+    from ..index.udbfile import load_db
     # DB filename from -db, -otus or -zotus (src/searchcmd.cpp:29-37)
     if o.filled("db"):
         db_path = o.str("db")
@@ -208,7 +208,7 @@ def closed_ref(query_path: Optional[str]) -> None:
     from ..search.hitmgr import HitMgr
     from ..io.fastx import write_fasta
     o = options()
-    from ..commands import load_db
+    from ..index.udbfile import load_db
     db, db_index = load_db(o.str("db"))
     table = OTUTable()
     matched_targets = {}

@@ -17,7 +17,7 @@ AUTO_MIN_TARGETS targets (AUTO_MIN_SERVER_TARGETS when a resident server
 answers and the caller passed no device).  With no
 device passed the boots go to the resident server (device_server.py),
 else, saying why on stderr, to the card in this process
-(commands.py:_engine_device).  Either way nothing falls back: a build,
+(card.py:open_card).  Either way nothing falls back: a build,
 launch or memory error on the card, or a failure of the server, raises.
 Runs that the device path cannot take (ineligible(): -self, a hashed
 index, an incidence over MAX_INCIDENCE_BYTES) run on the host whatever
@@ -431,8 +431,8 @@ def choose_device(cls: SintaxClassifier,
         return True, f"auto: {n} >= {AUTO_MIN_TARGETS} targets"
     if (device is None and AUTO_MIN_SERVER_TARGETS is not None
             and n >= AUTO_MIN_SERVER_TARGETS):
-        from ..device_server import get_client
-        if get_client(spawn=False) is not None:
+        from ..card import warm_server
+        if warm_server() is not None:
             return True, (f"auto: {n} >= {AUTO_MIN_SERVER_TARGETS} targets "
                           "and a live device server")
     return False, f"auto: {n} < {AUTO_MIN_TARGETS} targets"
@@ -458,8 +458,8 @@ def _row(label, c_strand, pred, ps, last_twc, cutoff) -> str:
 class SintaxRun:
     """The -sintax command kept loaded: the -db database and its word
     index, the classifier and, where choose_device() takes the card, the
-    classifier of the boots there with its incidence (on `device`, or
-    through commands._engine_device), all set up once from the options;
+    classifier of the boots there with its incidence (on the card that
+    card.open_card gives for `device`), all set up once from the options;
     then classify_file() classifies one query file a call.
 
     Each call restarts the tie-break RNG at -randseed (the classifier's
@@ -475,7 +475,7 @@ class SintaxRun:
     torch.profiler records, each span is a usearch.* range."""
 
     def __init__(self, device: DeviceLike = None) -> None:
-        from ..commands import load_db
+        from ..index.udbfile import load_db
         o = options()
         db, index = load_db(o.str("db"))
         if index is None:
@@ -494,9 +494,9 @@ class SintaxRun:
         self.on_card, self.reason = choose_device(cls, device)
         self.dev_cls = None
         if self.on_card:
-            from ..commands import _engine_device
+            from ..card import open_card
             from .sintax_device import SintaxTorchClassifier
-            self.dev_cls = SintaxTorchClassifier(cls, _engine_device(device))
+            self.dev_cls = SintaxTorchClassifier(cls, open_card(device))
         # the window path: the card's, or the native library's
         self.windowed = (self.dev_cls is not None
                          or cls.classify_window([], self.both) is not None)

@@ -20,9 +20,10 @@ numbers replayed exactly (src/sintaxsearcher.cpp:77-122, 151-187):
    (r % ties)-th tie.
 
 classify_window therefore equals SintaxClassifier.classify_window tuple
-for tuple.  The chunks run in this process (TorchBootEngine) or on the
-resident server (ServerBootEngine, device_server.py), which keeps the
-incidence of a DB across command runs; only the former imports torch.
+for tuple.  The chunks run on the engine that the card's boot_engine()
+gives (card.py): TorchBootEngine in this process, or a proxy of the
+resident server's (device_server.py), which keeps the incidence of a DB
+across command runs; only the former imports torch.
 
 SintaxTorchClassifier counts its stages in `stats` (obs.py), which
 amplicon/sintax.py:SintaxRun exposes as its dev_stats: the spans
@@ -31,11 +32,12 @@ arrays), inside it sintax_draws (the draws alone, one call of the C
 runtime a window), sintax_boots (the chunks' run_chunk calls: upload,
 kernels, copy back) and sintax_tally (host tally and strand vote, in
 classify_window; SintaxRun's also holds the rows), a span each a window;
-the device time sintax_boot_device_ns/_n (a DeviceTimer around each chunk's
-kernels in this process: CUDA events while the profiler records, the host
-clock on the CPU); the counters sintax_jobs, sintax_chunks, sintax_words
-(the jobs' unique words summed), sintax_launches (the kernels' launches in
-this process; 0 through the server) and sintax_draws_native (the windows
+the device time sintax_boot_device_ns/_n (the engine's DeviceTimer around
+each chunk's kernels in this process: CUDA events while the profiler
+records, the host clock on the CPU; none through the server); the
+counters sintax_jobs, sintax_chunks, sintax_words (the jobs' unique words
+summed), sintax_launches (the engine's kernel launches in this process; 0
+through the server) and sintax_draws_native (the windows
 whose draws the C runtime made; the others took the Python loop, where the
 library is not built).
 """
@@ -47,6 +49,7 @@ from typing import TYPE_CHECKING, List
 import numpy as np
 
 from .. import obs
+from ..card import as_card
 from .sintax import SintaxClassifier, _next_rand, ineligible
 
 if TYPE_CHECKING:
@@ -59,7 +62,10 @@ class TorchBootEngine:
     v word slots, t targets, the CSR postings (sizes (v,), postings
     (nnz,) target indices) and the number of boots.  The matrix is built
     on the device by an accumulating scatter, so a target posted twice
-    under one word counts twice (int8)."""
+    under one word counts twice (int8).  launches: the boot kernels'
+    launches of its chunks."""
+
+    launches = 0
 
     def __init__(self, v: int, t: int, sizes: np.ndarray,
                  postings: np.ndarray, boots: int,
@@ -91,7 +97,7 @@ class TorchBootEngine:
         times the boot step between the upload and the copy back."""
         import torch
 
-        from ..ops.sintax_boot import boot_step
+        from ..ops.sintax_boot import boot_count_select, boot_step, pick_hist
 
         def up(x):
             return torch.from_numpy(
@@ -101,36 +107,27 @@ class TorchBootEngine:
                 up(np.asarray(nuw, np.int32)), up(np.asarray(m, np.int32)),
                 up(np.asarray(stream, np.uint32)),
                 up(np.asarray(rr, np.uint32)))
+        n0 = pick_hist.launches + boot_count_select.launches
         if timer is not None:
             timer.start()
         winner, top = boot_step(*args, self.w_mat, self.B, self.inc_absmax)
         if timer is not None:
             timer.stop()
+        self.launches += (pick_hist.launches + boot_count_select.launches
+                          - n0)
         return winner.cpu().numpy(), top.cpu().numpy()
 
-
-class ServerBootEngine:
-    """TorchBootEngine's run_chunk on the resident server, on the
-    incidence it keeps for the DB signature `sig`, which it builds from
-    loader()'s fields (sintax_load) when it does not hold it.  A failure
-    of the server raises."""
-
-    def __init__(self, client, sig, loader) -> None:
-        self.client = client
-        self.sig = sig
-        self.loader = loader
-
-    def run_chunk(self, words, nuw, m, stream, rr, timer=None):
-        return self.client.sintax_boots(self.sig, words, nuw, m, stream, rr,
-                                        self.loader)
+    def timer(self, on: bool) -> obs.DeviceTimer:
+        """A timer of a chunk's boot step on the device (CUDA events only
+        where `on`)."""
+        return obs.DeviceTimer(self.device, on)
 
 
 class SintaxTorchClassifier:
-    """classify_window with the boots on `device`: a torch device (the
-    CPU runs the kernels' plain versions) or the resident server's
-    ServerDevice."""
+    """classify_window with the boots on `card` (card.py), or on a torch
+    device of this process (the CPU runs the kernels' plain versions)."""
 
-    def __init__(self, cls: SintaxClassifier, device: DeviceLike,
+    def __init__(self, cls: SintaxClassifier, card: DeviceLike,
                  chunk_q: int = 128) -> None:
         self.cls = cls
         self.index = cls.index
@@ -143,19 +140,11 @@ class SintaxTorchClassifier:
         # set by the caller for each query file: whether the profiler
         # records (obs.profiling()) and the file's number
         self.trace, self.seq = False, None
-        self.device = None
-        db = (self.index.params.slot_count, self.t,
-              np.asarray(self.index.sizes), np.asarray(self.index.postings),
-              int(cls.boots))
-        if getattr(device, "is_server", False):
-            from ..device_server import db_signature
-            self._engine = ServerBootEngine(
-                device.client, db_signature(self.index, "sintax", db[4]),
-                lambda: dict(zip(("v", "t", "sizes", "postings", "boots"),
-                                 db)))
-        else:
-            self._engine = TorchBootEngine(*db, device)
-            self.device = self._engine.device
+        index = self.index
+        self._engine = as_card(card).boot_engine(
+            index, lambda: (index.params.slot_count, self.t,
+                            np.asarray(index.sizes),
+                            np.asarray(index.postings)), int(cls.boots))
 
     @classmethod
     def usable(cls, sc: SintaxClassifier) -> bool:
@@ -275,11 +264,10 @@ class SintaxTorchClassifier:
         words, nuw_a, m_a, stream, rr_a = arrays
         eng = self._engine
         with obs.span(st, "sintax_boots", tr, seq):
-            n0 = self._launches()
+            n0 = eng.launches
             for lo in range(0, nj, cq):
                 hi = min(lo + cq, nj)
-                timer = None if self.device is None else \
-                    obs.DeviceTimer(self.device, tr)
+                timer = eng.timer(tr)
                 w_np, t_np = eng.run_chunk(
                     words[lo:lo + cq], nuw_a[lo:lo + cq], m_a[lo:lo + cq],
                     stream, rr_a[lo:lo + cq], timer)
@@ -289,17 +277,8 @@ class SintaxTorchClassifier:
                 if ns is not None:
                     obs.add(st, "sintax_boot_device_ns", ns)
                     obs.add(st, "sintax_boot_device_n", 1)
-            obs.add(st, "sintax_launches", self._launches() - n0)
+            obs.add(st, "sintax_launches", eng.launches - n0)
         return per_q, winners, tops
-
-    def _launches(self) -> int:
-        """The boot kernels' launches in this process so far (none where
-        the server runs the chunks, and torch is not imported)."""
-        if self.device is None:
-            return 0
-        from ..ops import sintax_boot
-        return (sintax_boot.pick_hist.launches
-                + sintax_boot.boot_count_select.launches)
 
     def tally(self, per_q, winners, tops, both: bool):
         """Host tally and strand vote (as SintaxClassifier.classify)."""

@@ -8,19 +8,18 @@ run its boots there (amplicon/sintax.py), and cluster_mt -mesh counts its
 words there (parallel/cluster_batch.py); every other command runs on the
 host.  The card's work of usearch_global and sintax goes, unless the
 caller passed a device, to the resident server (device_server.py), so
-that the command's process imports no torch (_engine_device); torch is
-imported only when a command runs on the card in its own process.
+that the command's process imports no torch (card.py:open_card); torch
+is imported only when a command runs on the card in its own process.
 """
 
 from __future__ import annotations
 
-import sys
 from typing import TYPE_CHECKING, Optional
 
 from .config import options
 from .engine.batch import engine_eligible
+from .index.udbfile import load_db
 from .io.fastx import file_is_nucleo, write_fasta
-from .io.seqdb import SeqDB
 from .out import alnout
 from .out import uc as uc_mod
 from .out.blast6 import blast6_line, blast6_no_hits_line
@@ -30,31 +29,6 @@ from .search.hitmgr import HitMgr
 
 if TYPE_CHECKING:
     from .device import DeviceLike
-
-def _is_udb(path: str) -> bool:
-    try:
-        with open(path, "rb") as f:
-            import struct
-            from .index.udbfile import MAGIC1
-            return struct.unpack("<I", f.read(4))[0] == MAGIC1
-    except Exception:
-        return False
-
-
-def load_db(path: str):
-    """LoadDB (src/loaddb.cpp:127): dispatch .udb vs FASTA.  Returns
-    (SeqDB, UDBIndex-or-None); .udb DBs are already masked/indexed."""
-    if _is_udb(path):
-        from .index.udbfile import read_udb
-        index, db = read_udb(path)
-        if len(db) == 0:
-            raise SystemExit("Database is empty")
-        return db, index
-    db = SeqDB.from_fastx(path)
-    if len(db) == 0:
-        raise SystemExit("Database is empty")
-    db.mask()
-    return db, None
 
 
 def run(cmd: str, cmd_arg: Optional[str], device: DeviceLike) -> None:
@@ -85,28 +59,6 @@ def _mesh(device: DeviceLike):
     return make_mesh(o.str("mesh"), device)
 
 
-def _engine_device(device: DeviceLike = None):
-    """The device of a command's card work: `device` in this process when
-    the caller passed one; else the resident server (device_server.py),
-    live or spawned, so that this process imports no torch; else the card
-    in this process (resolve_device, which raises where there is none),
-    after one line on stderr saying why the server is not used.  -xprof
-    traces this process, so its work stays here."""
-    from .device import resolve_device
-    if device is not None:
-        return resolve_device(device)
-    if options().filled("xprof"):
-        why = "-xprof traces this process"
-    else:
-        from .device_server import ServerDevice, connect
-        client, why = connect(spawn=True)
-        if client is not None:
-            return ServerDevice(client)
-    print(f"usearch12_tpu_torch: not using the device server ({why}); "
-          "the card's work runs in this process", file=sys.stderr)
-    return resolve_device(None)
-
-
 # the DB size from which usearch_global ranks on the card without
 # -device_rank (the JAX package's gate is 200,000 targets): in this process
 # when the caller passed a device, else on a live resident server, never
@@ -122,7 +74,7 @@ def _device_rank(eng) -> bool:
     """Whether usearch_global's ranking runs on the card
     (ops/csr_rank.py): asked with -device_rank, or, unless
     -no_device_rank, when the DB has at least AUTO_MIN_RANK_TARGETS targets
-    (where that is set) and the engine has a device: the caller's, or,
+    (where that is set) and the engine has a card: the caller's, or,
     through the factory, a live resident server (asked before anything
     imports torch; none is spawned for it); never for a hashed index."""
     o = options()
@@ -134,12 +86,12 @@ def _device_rank(eng) -> bool:
     if (AUTO_MIN_RANK_TARGETS is None
             or eng.index.seq_count < AUTO_MIN_RANK_TARGETS):
         return False
-    if eng.device is not None:
+    if eng.card is not None:
         return True
-    if eng._device_factory is None:
+    if eng._card_factory is None:
         return False
-    from .device_server import get_client
-    return get_client(spawn=False) is not None
+    from .card import warm_server
+    return warm_server() is not None
 
 
 def cmd_usearch_global(query_path: Optional[str],
@@ -147,7 +99,7 @@ def cmd_usearch_global(query_path: Optional[str],
     """usearch_global: UDB global search with USORT ranking
     (src/searchcmd.cpp:6-50, src/search.cpp:89-141): the batch engine,
     with the hole DP on the card unless -no_engine_device (on `device`, or
-    through _engine_device when the first window wants it) and the
+    through card.open_card when the first window wants it) and the
     ranking there where _device_rank says, where it takes the run, else
     the serial driver.  With -mesh the engine ranks over the mesh's
     devices and aligns on the host (parallel/mesh_search.py), in this
@@ -230,32 +182,24 @@ def cmd_usearch_global(query_path: Optional[str],
             mesh_search_file(query_path, db, mesh, on_query_done,
                              fast_emit=fast_emit, index=db_index)
         elif eligible and not o.flag("use_serial_driver"):
+            from .card import open_card
             from .engine import BatchEngine
-            dev = factory = None
+            card = factory = None
             if o.flag("no_engine_device"):
                 pass
             elif device is not None:
-                from .device import resolve_device
-                dev = resolve_device(device)
+                card = open_card(device)
             else:
-                factory = _engine_device
+                factory = open_card
             eng = BatchEngine("usearch_global", db, index=db_index,
-                              device=dev, device_factory=factory)
+                              device=card, card_factory=factory)
             rank_override = None
             if _device_rank(eng):
-                from .ops.csr_host import CSRServerRanker, make_engine_override
-                rank_dev = eng.ensure_device()
-                if rank_dev is None:
-                    rank_dev = _engine_device(device)
-                topk = max(64, eng.max_accepts + eng.max_rejects)
-                if getattr(rank_dev, "is_server", False):
-                    from .device_server import db_signature
-                    ranker = CSRServerRanker(
-                        eng.index, rank_dev.client,
-                        db_signature(eng.index, "csr"), topk=topk)
-                else:
-                    from .ops.csr_rank import CSRDeviceRanker
-                    ranker = CSRDeviceRanker(eng.index, rank_dev, topk=topk)
+                from .ops.csr_host import CSRRanker, make_engine_override
+                ranker = CSRRanker(eng.index,
+                                   eng.ensure_card() or open_card(device),
+                                   topk=max(64, eng.max_accepts
+                                            + eng.max_rejects))
                 rank_override = make_engine_override(ranker, eng)
             if only_b6:
                 from .engine.emit import Blast6Emitter

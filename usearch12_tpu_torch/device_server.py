@@ -9,18 +9,21 @@ process of the port pays torch's import and the CUDA start (6.5-13.2 s,
 PERF.md section 5), which the card's work of a ranking or SINTAX run
 cannot win back.  A warm server also keeps what a run would upload: the
 CSR postings of -device_rank (csr_load) and the SINTAX incidence
-(sintax_load), by DB signature, at most two of each.
+(sintax_load), by DB signature, at most two of each, and the hole DP's
+aligners (align_load), one a class of gap penalties.
 
 Protocol: one request per connection, an 8-byte big-endian length and a
 pickle each way.  Requests (op, then the fields):
   ping                          -> pid, device, digest, served, busy,
-                                   launches, start
-  align  ap cls_bits band nucleo pairs      -> scores, paths
-  csr_load  sig t starts sizes postings topk bump big
-  csr_rank  sig qw cap          -> cnts, tgts, nextv, or need_load
-  sintax_load  sig v t sizes postings boots
-  sintax_boots  sig words nuw m stream rr   -> winners, tops, or need_load
+                                   engines, launches, start
+  <load op>  sig args           (KINDS: align_load, csr_load, sintax_load)
+  <run op>  sig args            -> out, or need_load
+                                (KINDS: align, csr_rank, sintax_boots)
   shutdown
+A load builds an engine of its kind with card.py's LocalCard from args
+and keeps it under sig; a run calls the method of the engine held under
+sig with args, the call that the in-process route makes (card.py), and
+answers need_load where the server holds none.
 Every reply has "ok"; a failed request gets {"ok": False, "error"} and the
 server goes on serving.  One thread serves each connection, so a ping
 answers while the card works; one lock makes the card's work one request
@@ -38,7 +41,7 @@ Nothing here falls back.  A request the server does not answer, or
 answers with an error, raises DeviceServerError, naming the log, and the
 command fails.  The only other route is taken before any device work:
 no server could be reached or spawned (connect() says why), and the
-caller runs on the card in its own process (commands.py:_engine_device).
+caller runs on the card in its own process (card.py:open_card).
 """
 
 from __future__ import annotations
@@ -66,8 +69,15 @@ SPAWN_TIMEOUT = 600.0
 SUN_PATH_MAX = 107
 # engines kept a kind: one DB switch keeps the previous DB's
 MAX_ENGINES = 2
-OPS = ("ping", "align", "csr_load", "csr_rank", "sintax_load",
-       "sintax_boots", "shutdown")
+# the engines a server holds, by card.py's factory that makes them: the
+# op that loads one, the op that runs its method, that method, and the
+# most kept (oldest evicted first; None: all, an aligner is 16 floats)
+KINDS = {"aligner": ("align_load", "align", "align", None),
+         "csr_chunks": ("csr_load", "csr_rank", "run_chunk", MAX_ENGINES),
+         "boot_engine": ("sintax_load", "sintax_boots", "run_chunk",
+                         MAX_ENGINES)}
+OPS = ("ping",) + tuple(op for k in KINDS.values() for op in k[:2]) + (
+    "shutdown",)
 
 
 class DeviceServerError(RuntimeError):
@@ -192,78 +202,21 @@ class DeviceServerClient:
     def shutdown(self) -> None:
         self._request({"op": "shutdown"}, timeout=30.0)
 
-    def align(self, ap, cls_bits: int, band: int, nucleo: bool, pairs):
-        rep = self._request({"op": "align", "ap": ap, "cls_bits": cls_bits,
-                             "band": band, "nucleo": nucleo,
-                             "pairs": [(np.ascontiguousarray(a),
-                                        np.ascontiguousarray(b))
-                                       for a, b in pairs]})
-        return rep["scores"], rep["paths"]
-
-    def _with_load(self, req: dict, load_op: str, loader) -> dict:
-        """req, after a `load_op` of loader()'s fields when the server
-        answers need_load (it holds no engine of req's signature)."""
+    def run(self, kind: str, sig, args: tuple, load):
+        """The method of the engine of `kind` that the server holds under
+        `sig`, called there with args; when the server answers need_load
+        (it holds no such engine), load() gives its load's args."""
+        load_op, run_op = KINDS[kind][:2]
+        req = {"op": run_op, "sig": sig, "args": args}
         rep = self._request(req)
         for _ in range(2):
             if not rep.get("need_load"):
-                return rep
-            self._request({"op": load_op, "sig": req["sig"], **loader()})
+                return rep["out"]
+            self._request({"op": load_op, "sig": sig, "args": load()})
             rep = self._request(req)
         raise DeviceServerError(
-            f"device server: {req['op']} still needs {load_op} after two "
+            f"device server: {run_op} still needs {load_op} after two "
             f"loads (its log: {self.paths.log})")
-
-    def csr_rank(self, sig, qw, cap: int, loader):
-        """One chunk of the CSR ranker on the server's engine for `sig`;
-        loader() gives csr_load's fields."""
-        rep = self._with_load({"op": "csr_rank", "sig": tuple(sig),
-                               "qw": np.ascontiguousarray(qw),
-                               "cap": int(cap)}, "csr_load", loader)
-        return rep["cnts"], rep["tgts"], rep["nextv"]
-
-    def sintax_boots(self, sig, words, nuw, m, stream, rr, loader):
-        """One chunk of SINTAX's boots on the server's engine for `sig`;
-        loader() gives sintax_load's fields."""
-        rep = self._with_load(
-            {"op": "sintax_boots", "sig": tuple(sig),
-             **{k: np.ascontiguousarray(x) for k, x in (
-                 ("words", words), ("nuw", nuw), ("m", m),
-                 ("stream", stream), ("rr", rr))}},
-            "sintax_load", loader)
-        return rep["winners"], rep["tops"]
-
-
-class ServerDevice:
-    """The engine's device when the server does its card work: `type` is
-    the server's device type ("cuda", or "cpu" for a server started with
-    --device cpu)."""
-
-    is_server = True
-
-    def __init__(self, client: DeviceServerClient):
-        self.client = client
-        self.type = client.info["device"].split(":")[0]
-
-    @property
-    def server_warm(self) -> bool:
-        """The server has aligned before: its kernels are loaded, so this
-        process pays no first dispatch's tax (DevicePerfModel.warm_tax
-        is a server's cost, not a process's)."""
-        return bool(self.client.info["served"]["align"])
-
-
-class ServerClassAligner:
-    """TorchWaveAligner's align() for one terminal-penalty class of the
-    command's AlnParams, on the server."""
-
-    def __init__(self, client: DeviceServerClient, ap, cls_bits: int):
-        self.client = client
-        self.ap = ap
-        self.cls_bits = cls_bits
-
-    def align(self, pairs, band_radius: int, nucleo: bool = True):
-        return self.client.align(self.ap, self.cls_bits, band_radius,
-                                 nucleo, pairs)
 
 
 def _live(cli: DeviceServerClient, digest: str) -> Optional[str]:
@@ -448,62 +401,30 @@ def _serve(sock_path: str, idle_s: float, device: str) -> int:
     else:
         dev = torch.device("cpu")
         on_dev = contextlib.nullcontext
-    from .amplicon.sintax_device import TorchBootEngine
-    from .ops import sintax_boot, wavefront_trace
-    from .ops.csr_rank import CSRDeviceRanker
-    from .ops.wavefront_nw import (TorchWaveAligner, gap_params,
-                                   match_mismatch, wavefront_fwd)
+    from .card import LocalCard
+    from .ops import sintax_boot, wavefront_nw, wavefront_trace
     print(f"device_server: {dev}, torch {torch.__version__}; start "
           + ", ".join(f"{k} {v:.3f}" for k, v in start.items()), flush=True)
     digest = code_digest()
-
-    aligners = {}
-    engines = {"csr": {}, "sintax": {}}
-
-    def aligner_for(ap, cls_bits: int):
-        key = (tuple(gap_params(ap).tolist()), match_mismatch(ap),
-               int(cls_bits))
-        fa = aligners.get(key)
-        if fa is None:
-            fa = TorchWaveAligner(ap.hole_params(*(bool(cls_bits & b)
-                                                   for b in (1, 2, 4, 8))),
-                                  dev)
-            aligners[key] = fa
-        return fa
-
-    def keep(kind: str, sig, make) -> None:
-        held = engines[kind]
-        if sig not in held:
-            while len(held) >= MAX_ENGINES:
-                held.pop(next(iter(held)))
-            held[sig] = make()
+    card = LocalCard(dev)
+    engines = {kind: {} for kind in KINDS}
+    by_op = {op: (kind, op == ops[1])
+             for kind, ops in KINDS.items() for op in ops[:2]}
 
     def work(req: dict) -> dict:
-        op = req["op"]
-        if op == "align":
-            scores, paths = aligner_for(req["ap"], req["cls_bits"]).align(
-                req["pairs"], req["band"], nucleo=req["nucleo"])
-            return {"scores": np.asarray(scores), "paths": list(paths)}
-        if op == "csr_load":
-            keep("csr", req["sig"], lambda: CSRDeviceRanker.from_arrays(
-                req["t"], req["starts"], req["sizes"], req["postings"],
-                req["topk"], req["bump"], req["big"], dev))
-            return {}
-        if op == "sintax_load":
-            keep("sintax", req["sig"], lambda: TorchBootEngine(
-                req["v"], req["t"], req["sizes"], req["postings"],
-                req["boots"], dev))
-            return {}
-        kind = "csr" if op == "csr_rank" else "sintax"
-        eng = engines[kind].get(req["sig"])
-        if eng is None:
-            return {"need_load": True}
-        if op == "csr_rank":
-            c, t, n = eng.run_chunk(req["qw"], req["cap"])
-            return {"cnts": c, "tgts": t, "nextv": n}
-        w, t = eng.run_chunk(req["words"], req["nuw"], req["m"],
-                             req["stream"], req["rr"])
-        return {"winners": w, "tops": t}
+        kind, runs = by_op[req["op"]]
+        held, sig = engines[kind], req["sig"]
+        if runs:
+            eng = held.get(sig)
+            if eng is None:
+                return {"need_load": True}
+            return {"out": getattr(eng, KINDS[kind][2])(*req["args"])}
+        if sig not in held:
+            most = KINDS[kind][3]
+            while most is not None and len(held) >= most:
+                held.pop(next(iter(held)))
+            held[sig] = card.build(kind, *req["args"])
+        return {}
 
     os.makedirs(os.path.dirname(sock_path), mode=0o700, exist_ok=True)
     try:
@@ -532,7 +453,7 @@ def _serve(sock_path: str, idle_s: float, device: str) -> int:
                 "served": served, "busy": busy, "start": start,
                 "engines": {k: len(v) for k, v in engines.items()},
                 "launches": {
-                    "wavefront_fwd": wavefront_fwd.launches,
+                    "wavefront_fwd": wavefront_nw.wavefront_fwd.launches,
                     "wavefront_trace":
                         wavefront_trace.wavefront_trace.launches,
                     "sintax_pick_hist": sintax_boot.pick_hist.launches,

@@ -19,17 +19,17 @@ Outputs are bit-identical to the serial driver (search/driver.py); the
 parity suite runs both.  Reference semantics: src/search.cpp:89-141,
 src/udbusortedsearcher.cpp:122-152, src/globalalignmem.cpp:129-236.
 
-The device is a torch.device passed to the constructor, or the one that
-its device_factory returns (a torch.device or the resident server's
-ServerDevice, device_server.py) when a window first wants it: the
-factory runs only then, or, for a file holding a sequence of 2,000 nt or
-more, in a warm-up thread started with the run.  The device is never
-dropped: a build, launch or memory error on it, or a failure of the
-server or of the factory, raises.  Without either (-no_engine_device)
-every hole runs in the host C kernel.  Holes whose band is wider than
-BW_DEV_MAX, and batches the dispatch gate keeps on the host, run in the
-host C kernel too, and the cells of each are counted in dev_stats.  torch
-is imported only when the device is a torch.device.
+The card (card.py) is the one passed to the constructor (or the
+LocalCard of a torch.device passed there), or the one that its
+card_factory returns when a window first wants it: the factory runs only
+then, or, for a file holding a sequence of 2,000 nt or more, in a warm-up
+thread started with the run.  The card is never dropped: a build, launch
+or memory error on it, or a failure of the server or of the factory,
+raises.  Without either (-no_engine_device) every hole runs in the host C
+kernel.  Holes whose band is wider than BW_DEV_MAX, and batches the
+dispatch gate keeps on the host, run in the host C kernel too, and the
+cells of each are counted in dev_stats.  torch is imported only when the
+card is a LocalCard.
 
 dev_stats also holds the stages of every run_file call (STAGES: the
 request, the parse, the rank, each candidate round and its chain, holes
@@ -48,10 +48,11 @@ import ctypes
 import os
 import tempfile
 import threading
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 
+from ..card import as_card
 from ..config import options
 from ..io.seqdb import SeqDB
 from ..scoring import AlnParams, AlnHeuristics
@@ -349,7 +350,7 @@ class BatchEngine:
     def __init__(self, cmd: str, db: SeqDB,
                  index: Optional[UDBIndex] = None,
                  device=None,
-                 device_factory: Optional[Callable] = None) -> None:
+                 card_factory: Optional[Callable] = None) -> None:
         o = options()
         self.lib = get_lib()
         self.db = db
@@ -402,15 +403,14 @@ class BatchEngine:
         self._db_off = offs
         self._db_len = lens
 
-        # device hole alignment: a torch.device or a ServerDevice, or the
-        # factory's when a window first wants it; neither: the host C
-        # kernel only
-        self.device = device
-        self._device_factory = device_factory
+        # device hole alignment: the card passed (a torch.device: its
+        # LocalCard), or the factory's when a window first wants it;
+        # neither: the host C kernel only
+        self.card = None if device is None else as_card(device)
+        self._card_factory = card_factory
         self._factory_lock = threading.Lock()
         self._factory_thread = None
         self._factory_error: Optional[BaseException] = None
-        self._class_aps: Dict[int, AlnParams] = {}
         self._class_fused = {}
         # holes of at least this many cells leave chain_batch_c for
         # _align_holes (the device, or the host C kernel when it has none)
@@ -436,10 +436,10 @@ class BatchEngine:
         self.trace = False
         self.seq = 0
         # adaptive gating on the card (in this process or the server's:
-        # the factory's device); the CPU (the kernels' plain versions,
+        # the factory's card); the CPU (the kernels' plain versions,
         # for tests) uses -dev_batch_cells
-        if device_factory is not None or (device is not None
-                                          and device.type == "cuda"):
+        if card_factory is not None or (self.card is not None
+                                        and self.card.type == "cuda"):
             self.perf = DevicePerfModel("cuda")
 
     def _new_scratch(self) -> _Scratch:
@@ -576,7 +576,7 @@ class BatchEngine:
         use_device = False
         # the device DP scores nucleotides only (scalar match/mismatch)
         if self.ap.nucleo and dev_ok.any() and (
-                self.device is not None or self._device_factory is not None):
+                self.card is not None or self._card_factory is not None):
             if self.dev_batch_min_cells is not None:
                 use_device = total_cells >= self.dev_batch_min_cells
             elif self.perf is not None:
@@ -589,13 +589,13 @@ class BatchEngine:
                     # only the first dispatch's tax vetoes the device,
                     # which a warm server has paid: find out (the
                     # factory: a ping where a server is up)
-                    self.ensure_device()
+                    self.ensure_card()
                     use_device = self.perf.warm and self.perf.device_wins(
                         total_cells, up_bytes, dn_bytes, left)
                 use_device = use_device or self.perf.should_probe(
                     total_cells)
         if use_device:
-            self.ensure_device()
+            self.ensure_card()
         host = np.nonzero(~dev_ok if use_device else
                           np.ones(n_hole, bool))[0]
         paths: List[Optional[bytes]] = [None] * n_hole
@@ -663,72 +663,54 @@ class BatchEngine:
             raise RuntimeError("align_holes_c failed")
         return out, off
 
-    def _class_device(self, cls_bits: int) -> AlnParams:
-        """AlnParams of a hole's terminal-penalty class (terminal-gap
-        penalties vary per hole position)."""
-        ap = self._class_aps.get(cls_bits)
-        if ap is None:
-            ap = self.ap.hole_params(bool(cls_bits & 1), bool(cls_bits & 2),
-                                     bool(cls_bits & 4), bool(cls_bits & 8))
-            self._class_aps[cls_bits] = ap
-        return ap
-
     def _class_fused_aligner(self, cls_bits: int):
-        """The device aligner of a terminal-penalty class: on the server
-        (which derives the class's AlnParams from the command's) or in
-        this process."""
+        """The card's aligner of a terminal-penalty class (terminal-gap
+        penalties vary per hole position)."""
         fa = self._class_fused.get(cls_bits)
         if fa is None:
-            if getattr(self.device, "is_server", False):
-                from ..device_server import ServerClassAligner
-                fa = ServerClassAligner(self.device.client, self.ap,
-                                        cls_bits)
-            else:
-                from ..ops.wavefront_nw import TorchWaveAligner
-                fa = TorchWaveAligner(self._class_device(cls_bits),
-                                      self.device)
-            self._class_fused[cls_bits] = fa
+            fa = self._class_fused[cls_bits] = self.card.aligner(self.ap,
+                                                                 cls_bits)
         return fa
 
-    def _set_device(self, dev) -> None:
-        """Take the factory's device; a warm server's first dispatch pays
-        no tax."""
-        if getattr(dev, "server_warm", False):
+    def _set_card(self, card) -> None:
+        """Take the factory's card; a warm one's first dispatch pays no
+        tax."""
+        if card.warm:
             self.perf.warm = True
-        self.device = dev
+        self.card = card
 
-    def ensure_device(self):
-        """The device, from the factory if it has none yet: the factory
+    def ensure_card(self):
+        """The card, from the factory if it has none yet: the factory
         runs once, here or in the warm-up thread, whose exception this
-        raises.  None without device and factory."""
+        raises.  None without card and factory."""
         th = self._factory_thread
         if th is not None:
             th.join()
         with self._factory_lock:
             if self._factory_error is not None:
                 raise self._factory_error
-            if self.device is None and self._device_factory is not None:
-                self._set_device(self._device_factory())
-        return self.device
+            if self.card is None and self._card_factory is not None:
+                self._set_card(self._card_factory())
+        return self.card
 
-    def _ensure_device_async(self) -> None:
+    def _ensure_card_async(self) -> None:
         """Run the factory in a thread (the server's ping or spawn, or
         torch's import and the CUDA start) beside the host's parse, rank
-        and chain stages, which release the GIL; ensure_device() joins
+        and chain stages, which release the GIL; ensure_card() joins
         it."""
         with self._factory_lock:
-            if (self.device is not None or self._device_factory is None
+            if (self.card is not None or self._card_factory is None
                     or self._factory_thread is not None):
                 return
 
             def work():
                 try:
-                    dev = self._device_factory()
+                    card = self._card_factory()
                 except BaseException as e:  # noqa: BLE001 - to the command
                     self._factory_error = e
                     return
                 with self._factory_lock:
-                    self._set_device(dev)
+                    self._set_card(card)
 
             self._factory_thread = threading.Thread(target=work, daemon=True)
             self._factory_thread.start()
@@ -843,7 +825,7 @@ class BatchEngine:
                     for k in range(len(jobs_l)):
                         collect_hits(jobs_l[k], tix_l[k],
                                      pb[offs_l[k]:offs_l[k + 1]], stats_l[k])
-                if self.device is not None:
+                if self.card is not None:
                     depth = min(depth * 2, 8)   # fewer device round trips
                 # no device: depth stays 1 (zero speculation waste)
         with self._lock:
@@ -878,7 +860,7 @@ class BatchEngine:
                 ds = self.dev_stats
                 runlog.note(
                     f"Search: {n} queries, window {window}, "
-                    f"device {'on' if self.device is not None else 'off'}"
+                    f"device {'on' if self.card is not None else 'off'}"
                     f" ({ds['dispatches']} dispatches, "
                     f"{ds['device_cells']} device cells, "
                     f"{ds['host_cells']} host cells)")
@@ -891,8 +873,8 @@ class BatchEngine:
             import json
             with open(stats_path, "a") as f:
                 f.write(json.dumps({
-                    "device": self.device is not None,
-                    "server": getattr(self.device, "is_server", False),
+                    "device": self.card is not None,
+                    "server": self.card is not None and self.card.remote,
                     **self.dev_stats,
                     "host_rate": None if self.perf is None
                     else round(self.perf.host_rate),
@@ -918,11 +900,11 @@ class BatchEngine:
         with obs.span(st, "parse", tr, seq):
             win = _FastaWindows(query_path)
         n = win.n
-        # long sequences are the hole DP's workload: the factory's device
+        # long sequences are the hole DP's workload: the factory's card
         # starts now, beside the host stages, not at the first dispatch
-        if n and self.device is None and self._device_factory is not None \
+        if n and self.card is None and self._card_factory is not None \
                 and int(np.diff(win.seq_off).max()) >= 2000:
-            self._ensure_device_async()
+            self._ensure_card_async()
         progress.start("Searching")
         db = self.db
         # fast label decode (slow _proc_label only when options demand)

@@ -289,3 +289,26 @@ def read_bitvec(path: str):
         raise SystemExit(f"Bad bitvec file size: {path}")
     bits = np.unpackbits(data, bitorder="little")
     return word_length, bits[:slot_count].astype(bool)
+
+
+def _is_udb(path: str) -> bool:
+    try:
+        with open(path, "rb") as f:
+            return struct.unpack("<I", f.read(4))[0] == MAGIC1
+    except Exception:
+        return False
+
+
+def load_db(path: str):
+    """LoadDB (src/loaddb.cpp:127): dispatch .udb vs FASTA.  Returns
+    (SeqDB, UDBIndex-or-None); .udb DBs are already masked/indexed."""
+    if _is_udb(path):
+        index, db = read_udb(path)
+        if len(db) == 0:
+            raise SystemExit("Database is empty")
+        return db, index
+    db = SeqDB.from_fastx(path)
+    if len(db) == 0:
+        raise SystemExit("Database is empty")
+    db.mask()
+    return db, None

@@ -3,20 +3,20 @@ the query words of a window cut into padded chunks (prepare_chunks), the
 window loop (rank_window), the cut of the ranked lists (_finish) and the
 engine's rank_override (make_engine_override).
 
-This module imports no torch.  The ranking of a chunk, run_chunk(qw,
-cap), is a subclass's: CSRDeviceRanker (ops/csr_rank.py) runs it on a
-torch device in this process, CSRServerRanker hands it to the resident
-server (device_server.py), whose process keeps the CSR arrays on the card
-across command runs.  The semantics on each side of -big are
+This module imports no torch.  A ranker owns its device half, the one
+that its card's csr_chunks() returns (card.py): ops/csr_rank.py's
+CSRChunks on a torch device in this process, or a proxy of the resident
+server's (device_server.py), whose process keeps the CSR arrays on the
+card across command runs.  The semantics on each side of -big are
 ops/csr_rank.py's.
 
 A ranker counts its stages in `stats` (obs.span): rank_prepare_ns/_n
-(prepare_chunks, and the device ranker's kernel input a chunk),
+(prepare_chunks, and the device half's kernel input a chunk),
 rank_finish_ns/_n (_finish and the override's host
 re-rank), rank_device_ns/_n (a chunk's upload to its top K, where the
-subclass times it), rank_chunks and rank_hit_slots (chunk rows times the
-hit stream's padded length), and what the subclass counts (the device
-ranker's rank_kernel_launches, rank_touched, rank_spills); the engine's
+device half times it), rank_chunks and rank_hit_slots (chunk rows times the
+hit stream's padded length), and what the device half counts (in this
+process rank_kernel_launches, rank_touched, rank_spills); the engine's
 override adds them into BatchEngine.dev_stats after each window.
 """
 
@@ -33,18 +33,19 @@ from ..search.usorted import big_query_step
 
 
 class CSRRanker:
-    """Exact USORT ranking of query windows, a chunk of `chunk_b` queries
-    at a time (WINDOW: the window's jobs as one chunk), with the semantics
-    of the host ranker on the same side of -big; run_chunk is the
-    subclass's."""
+    """Exact USORT ranking of query windows on `card`, a chunk of
+    `chunk_b` queries at a time (WINDOW: the window's jobs as one chunk,
+    which a device half that ranks whole windows takes whatever chunk_b
+    asks), with the semantics of the host ranker on the same side of
+    -big."""
 
     # hit-stream positions a query, at most (the JAX ranker's ceiling)
     CAP_MAX = 1 << 18
     # chunk_b: each window's jobs as one chunk
     WINDOW = 0
 
-    def __init__(self, index, topk: int = 64, bump: Optional[int] = None,
-                 chunk_b: int = 64) -> None:
+    def __init__(self, index, card, topk: int = 64,
+                 bump: Optional[int] = None, chunk_b: int = 64) -> None:
         o = options()
         index._flatten()
         self.index = index
@@ -52,7 +53,6 @@ class CSRRanker:
         self.bump = int(o.uns("bump")) if bump is None else bump
         self.chunk_b = chunk_b
         self.stats = {}
-        self._trace, self._seq = False, None
         self.t = index.seq_count
         params = index.params
         self._params = params
@@ -67,6 +67,10 @@ class CSRRanker:
         sizes = np.zeros(v + 1, np.int64)
         sizes[:v] = index.sizes
         self._sizes_np = sizes
+        self.dev = card.csr_chunks(index, self.csr_arrays, topk, self.bump,
+                                   self.big)
+        if self.dev.whole_windows:
+            self.chunk_b = self.WINDOW
 
     def csr_arrays(self):
         """(starts (V + 2,), sizes (V + 1,), postings (nnz + 1,)): the CSR
@@ -113,10 +117,6 @@ class CSRRanker:
             chunks.append((lo, hi, qw, cap))
         return n_jobs, chunks, over
 
-    def run_chunk(self, qw: np.ndarray, cap: int):
-        """One chunk -> host (cnts, targets, nextv)."""
-        raise NotImplementedError
-
     def rank_window(self, jbuf: np.ndarray, j_off: np.ndarray,
                     trace: bool = False, seq: Optional[int] = None):
         """-> (cand (n_jobs, K) int64, cnts uint32, out_n int32, uncertain
@@ -126,7 +126,6 @@ class CSRRanker:
         ranking.  trace: torch.profiler records (the stages' ranges, the
         card's timer), seq: the request's number."""
         st = self.stats
-        self._trace, self._seq = trace, seq
         with obs.span(st, "rank_prepare", trace, seq):
             n_jobs, chunks, over = self.prepare_chunks(jbuf, j_off)
         K = self.topk
@@ -134,7 +133,8 @@ class CSRRanker:
         cand = np.full((n_jobs, K), self.t, dtype=np.int64)
         nextv = np.zeros(n_jobs, dtype=np.int64)
         for lo, hi, qw, cap in chunks:
-            c_n, t_n, n_n = self.run_chunk(qw, cap)
+            c_n, t_n, n_n = self.dev.run_chunk(qw, cap, stats=st,
+                                               trace=trace, seq=seq)
             cnts[lo:hi] = c_n[:hi - lo]
             cand[lo:hi] = t_n[:hi - lo]
             nextv[lo:hi] = n_n[:hi - lo]
@@ -156,29 +156,6 @@ class CSRRanker:
         bound = term.max_accepts + term.max_rejects
         uncertain = (out_n >= self.topk) & (bound > self.topk)
         return cand, cnts.astype(np.uint32), out_n, uncertain
-
-
-class CSRServerRanker(CSRRanker):
-    """The ranking on the resident server (the JAX package's
-    CSRServerRanker): the words of each chunk are made here, the server
-    ranks them on the CSR arrays it keeps for the DB signature `sig`,
-    loading them from this process once (csr_load) when it does not hold
-    them.  A failure of the server raises."""
-
-    def __init__(self, index, client, sig, topk: int = 64,
-                 bump: Optional[int] = None, chunk_b: int = 64) -> None:
-        super().__init__(index, topk, bump, chunk_b)
-        self._client = client
-        self._sig = tuple(sig) + (topk, self.bump, self.big)
-
-    def _load(self) -> dict:
-        starts, sizes, post = self.csr_arrays()
-        return {"t": self.t, "starts": starts, "sizes": sizes,
-                "postings": post, "topk": self.topk, "bump": self.bump,
-                "big": self.big}
-
-    def run_chunk(self, qw: np.ndarray, cap: int):
-        return self._client.csr_rank(self._sig, qw, cap, self._load)
 
 
 def make_engine_override(ranker: CSRRanker, eng):

@@ -19,7 +19,11 @@ ranker takes the semantics of the host path it replaces on each side of
   running maximum before the last record in that order, the top K by
   (count desc, first touch asc).
 
-Two routes rank a chunk (run_chunk), chosen by what the ranker holds:
+The device half, CSRChunks, holds the CSR arrays on a device and ranks
+a chunk of query words (run_chunk); the host half, ops/csr_host.py's
+CSRRanker, cuts the windows into chunks and owns it.  CSRDeviceRanker is
+the two on a device of this process.  Two routes rank a chunk, chosen by
+what the device half holds:
 
 - UDBSearchBig on a CUDA device: one launch of the kernel of
   csrc/csr_rank.cu (csr_rank_big) for the whole chunk, one block a query
@@ -38,10 +42,11 @@ Two routes rank a chunk (run_chunk), chosen by what the ranker holds:
 
 The hit stream is capped at CAP_MAX positions a query; queries above it
 come back `uncertain` and make_engine_override (ops/csr_host.py) ranks
-them on the host.  Besides the host half's, the ranker counts in `stats`
-rank_kernel_launches (the kernel's launches), rank_touched (the distinct
-targets counted, summed over the queries; big mode) and rank_spills
-(queries whose table the kernel kept in device memory, not on chip).
+them on the host.  Besides the host half's, the device half counts in the
+ranker's `stats` rank_kernel_launches (the kernel's launches),
+rank_touched (the distinct targets counted, summed over the queries; big
+mode) and rank_spills (queries whose table the kernel kept in device
+memory, not on chip).
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ import numpy as np
 import torch
 
 from .. import _build, obs
+from ..card import LocalCard
 from .csr_host import CSRRanker, make_engine_override  # noqa: F401
 from .wavefront_trace import check_tensor
 
@@ -102,53 +108,32 @@ def csr_rank_big(starts, sizes, postings, meta, cap: int, t: int, k: int,
 csr_rank_big.launches = 0
 
 
-class CSRDeviceRanker(CSRRanker):
-    """Exact USORT ranking of query windows from device-resident CSR
-    postings, with the semantics of the host ranker on the same side of
-    -big (the host half is ops/csr_host.py's).  chunk_b: the queries a
-    chunk of the torch ops' route, whose dense count rows it bounds; the
-    kernel's route ranks each window as one chunk."""
+class CSRChunks:
+    """The ranker's device half: the CSR of a DB of t targets as
+    csr_arrays() gives it (starts, sizes, postings) on `device`, and the
+    ranking of a chunk of query words with K = topk, -bump and the
+    semantics of UDBSearchBig (big) or SetTopBump.  whole_windows: the
+    kernel's route, which ranks a window as one chunk."""
 
-    def __init__(self, index, device, topk: int = 64,
-                 bump: Optional[int] = None, chunk_b: int = 64) -> None:
-        super().__init__(index, topk, bump, chunk_b)
-        self._put(torch.device(device), *self.csr_arrays())
-        if self._kernel:
-            self.chunk_b = self.WINDOW
-
-    @classmethod
-    def from_arrays(cls, t: int, starts, sizes, postings, topk: int,
-                    bump: int, big: bool, device) -> "CSRDeviceRanker":
-        """The device half alone, from csr_arrays()'s arrays of a DB of t
-        targets: the resident server's ranker (the JAX package's
-        CSRDeviceRanker.from_arrays), whose chunks' words another
-        process makes."""
-        self = cls.__new__(cls)
-        self.index = None
-        self.stats = {}
-        self._trace, self._seq = False, None
+    def __init__(self, t: int, starts, sizes, postings, topk: int,
+                 bump: int, big: bool, device) -> None:
         self.t, self.topk, self.bump, self.big = t, topk, bump, big
-        self._put(torch.device(device), starts, sizes, postings)
-        return self
-
-    def _put(self, device: torch.device, starts, sizes, post) -> None:
-        self.device = device
+        self.device = device = torch.device(device)
         self._starts = torch.from_numpy(np.asarray(starts, np.int64)).to(
             device)
         self._sizes = torch.from_numpy(np.asarray(sizes, np.int64)).to(
             device)
-        self._postings = torch.from_numpy(np.asarray(post, np.int32)).to(
+        self._postings = torch.from_numpy(np.asarray(postings, np.int32)).to(
             device)
         self._sizes_np = np.asarray(sizes, np.int64)
         # dense count rows of TP >= T + 1 columns (the torch ops' route)
         self.t_bits = max(int(self.t + 1).bit_length(), 7)
         # UDBSearchBig on the card takes the kernel; its library is built
         # or loaded here, in set-up
-        self._kernel = self.big and device.type == "cuda"
-        if self._kernel:
+        self.whole_windows = big and device.type == "cuda"
+        if self.whole_windows:
             _build.load_library()
 
-    # -- device half -----------------------------------------------------
     def hits(self, qw: torch.Tensor, cap: int) -> torch.Tensor:
         """(B, cap) hit stream: each query's posting rows end to end, in
         word order, then T."""
@@ -263,16 +248,19 @@ class CSRDeviceRanker(CSRRanker):
         meta[spill, wmax] = np.cumsum(slots) - slots
         return meta, int(slots.sum()), int(spill.sum())
 
-    def run_chunk(self, qw: np.ndarray, cap: int):
-        """One chunk on the device -> host (cnts, targets, nextv); its
-        upload to its top K timed into stats["rank_device_ns"] (on a CUDA
-        device only while the window is traced)."""
-        st = self.stats
-        timer = obs.DeviceTimer(self.device, self._trace)
-        if self._kernel:
+    def run_chunk(self, qw: np.ndarray, cap: int, stats=None,
+                  trace: bool = False, seq: Optional[int] = None):
+        """One chunk on the device -> host (cnts, targets, nextv), its
+        spans and counters in `stats` (None: none kept); its upload to its
+        top K timed into stats["rank_device_ns"] (on a CUDA device only
+        where `trace`, torch.profiler records the window; seq: the
+        request's number)."""
+        st = {} if stats is None else stats
+        timer = obs.DeviceTimer(self.device, trace)
+        if self.whole_windows:
             # the kernel's input is host work of the ranker's own: its
             # time goes to the host half's prepare span
-            with obs.span(st, "rank_prepare", self._trace, self._seq):
+            with obs.span(st, "rank_prepare", trace, seq):
                 meta, spill_total, spills = self.kernel_meta(qw, cap)
             timer.start()
             out = csr_rank_big(self._starts, self._sizes, self._postings,
@@ -303,3 +291,16 @@ class CSRDeviceRanker(CSRRanker):
         if touched is not None:
             obs.add(st, "rank_touched", int(touched.sum()))
         return nc, nt, nextv
+
+
+class CSRDeviceRanker(CSRRanker):
+    """Exact USORT ranking of query windows from CSR postings on `device`
+    in this process, with the semantics of the host ranker on the same
+    side of -big: the host half (ops/csr_host.py) and a LocalCard's
+    CSRChunks.  chunk_b: the queries a chunk of the torch ops' route,
+    whose dense count rows it bounds; the kernel's route ranks each
+    window as one chunk."""
+
+    def __init__(self, index, device, topk: int = 64,
+                 bump: Optional[int] = None, chunk_b: int = 64) -> None:
+        super().__init__(index, LocalCard(device), topk, bump, chunk_b)

@@ -40,7 +40,7 @@ import torch
 from ..config import options
 from ..index.udb import UDBIndex
 from ..io.seqdb import SeqDB
-from ..ops.csr_rank import CSRDeviceRanker, make_engine_override
+from ..ops.csr_rank import CSRChunks, CSRDeviceRanker, make_engine_override
 from ..search.terminator import Terminator
 from . import incidence
 from .mesh import Mesh
@@ -103,7 +103,7 @@ class MeshRanker:
         shards before it."""
         out, carry = [], None
         for x in xs:
-            pm = CSRDeviceRanker._excl_prefix_max(x)
+            pm = CSRChunks._excl_prefix_max(x)
             tot = x.max(1).values
             if carry is not None:
                 carry = carry.to(x.device)

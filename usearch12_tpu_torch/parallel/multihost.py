@@ -72,10 +72,10 @@ def multihost_search(query_path: str, db_path: str, out_path: str,
     records go to out_path.partRANK, and process 0 splices the stripes into
     out_path after every process has written its own."""
     import torch.distributed as dist
-    from ..commands import load_db
     from ..config import options
     from ..engine.batch import BatchEngine, _FastaWindows
     from ..engine.emit import Blast6Emitter
+    from ..index.udbfile import load_db
     from ..ops.csr_rank import make_engine_override
     from .mesh_search import MeshRanker
 

@@ -140,6 +140,8 @@ def test_counters_count_the_windows(files):
     assert st["sintax_launches"] == 0      # the plain versions launch none
     # one native call of the draws a window
     assert st["sintax_draws_native"] == len(windows)
+    # one native call of the tally and vote a window
+    assert st["sintax_tally_native"] == len(windows)
     # a second call adds as much again
     before = dict(st)
     run.classify_file(q1, None)
@@ -148,6 +150,7 @@ def test_counters_count_the_windows(files):
         {k: before[k] for k in ("sintax_queries", "sintax_jobs",
                                 "sintax_chunks")}
     assert st["sintax_draws_native"] == 2 * len(windows)
+    assert st["sintax_tally_native"] == 2 * len(windows)
 
 
 def test_host_path_counts_parse_tally_and_queries(files):

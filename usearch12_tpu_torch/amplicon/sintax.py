@@ -106,6 +106,32 @@ def name_in_tax_str(tax_str: str, name: str) -> bool:
     return rest == "" or rest[0] == ","
 
 
+def tally_strand(tax_id, winners):
+    """(tax ids, counts) of one strand's boot winners in CountMapToVecs'
+    order, in Python: tax ids are assigned in lexicographic order, so
+    np.unique's ascending ids reproduce its map order exactly, and
+    QuickSortOrderDesc then orders them by count (the C runtime's
+    sx_tally)."""
+    from ..search.hitmgr import quick_sort_order
+    uti, ucnt = np.unique(tax_id[winners], return_counts=True)
+    order = quick_sort_order(ucnt.tolist(), desc=True)
+    return [int(uti[i]) for i in order], [int(ucnt[i]) for i in order]
+
+
+def tally_tuples(B, ntax, ids, cnts, twc, strand):
+    """Per query (strand, tax ids, counts, last top word count) from a
+    window's tally arrays as the C runtime writes them (sintax_window_c,
+    sintax_tally_window_c): ntax, twc, strand (n,); ids, cnts (n * B,),
+    query i's ordered tally in the first ntax[i] of its B slots (only
+    those are converted: most queries fill a few)."""
+    keep = np.arange(B) < ntax[:, None]
+    ids_l = ids.reshape(len(ntax), B)[keep].tolist()
+    cnts_l = cnts.reshape(len(ntax), B)[keep].tolist()
+    return [(chr(c) if c else "+", ids_l[e - k:e], cnts_l[e - k:e], t)
+            for k, e, t, c in zip(ntax.tolist(), np.cumsum(ntax).tolist(),
+                                  twc.tolist(), strand.tolist())]
+
+
 class SintaxClassifier:
     _es = None
     _lib = False
@@ -300,16 +326,8 @@ class SintaxClassifier:
             out_ntax.ctypes.data, out_ids.ctypes.data,
             out_cnts.ctypes.data, out_twc.ctypes.data,
             out_strand.ctypes.data)
-        res = []
-        ids_l = out_ids.tolist()
-        cnts_l = out_cnts.tolist()
-        for i in range(n):
-            k = int(out_ntax[i])
-            res.append((chr(out_strand[i]) if out_strand[i] else "+",
-                        ids_l[i * B:i * B + k],
-                        cnts_l[i * B:i * B + k],
-                        int(out_twc[i])))
-        return res
+        return tally_tuples(B, out_ntax, out_ids, out_cnts, out_twc,
+                            out_strand)
 
     def classify(self, q_seq: np.ndarray):
         """Returns (pred names, Ps, top_word_count)."""
@@ -333,14 +351,7 @@ class SintaxClassifier:
             ids, counts, top_word_count = self._c_tally
         else:
             top_word_count = int(boot_u.max()) if self.boots else 0
-            # tax ids are assigned in lexicographic order, so np.unique's
-            # ascending ids reproduce CountMapToVecs' map order exactly
-            uti, ucnt = np.unique(self._tax_id[boot_ti],
-                                  return_counts=True)
-            from ..search.hitmgr import quick_sort_order
-            order = quick_sort_order(ucnt.tolist(), desc=True)
-            ids = [int(uti[i]) for i in order]
-            counts = [int(ucnt[i]) for i in order]
+            ids, counts = tally_strand(self._tax_id, boot_ti)
 
         pred, ps = self.pred_from_tally(ids, counts)
         return pred, ps, top_word_count

@@ -30,16 +30,17 @@ amplicon/sintax.py:SintaxRun exposes as its dev_stats: the spans
 sintax_prepare (unique words, m, the tie-break draws and the chunks' host
 arrays), inside it sintax_draws (the draws alone, one call of the C
 runtime a window), sintax_boots (the chunks' run_chunk calls: upload,
-kernels, copy back) and sintax_tally (host tally and strand vote, in
-classify_window; SintaxRun's also holds the rows), a span each a window;
-the device time sintax_boot_device_ns/_n (the engine's DeviceTimer around
-each chunk's kernels in this process: CUDA events while the profiler
-records, the host clock on the CPU; none through the server); the
-counters sintax_jobs, sintax_chunks, sintax_words (the jobs' unique words
-summed), sintax_launches (the engine's kernel launches in this process; 0
-through the server) and sintax_draws_native (the windows
-whose draws the C runtime made; the others took the Python loop, where the
-library is not built).
+kernels, copy back) and sintax_tally (host tally and strand vote, one
+call of the C runtime a window, in classify_window; SintaxRun's also holds
+the rows), a span each a window; the device time sintax_boot_device_ns/_n
+(the engine's DeviceTimer around each chunk's kernels in this process:
+CUDA events while the profiler records, the host clock on the CPU; none
+through the server); the counters sintax_jobs, sintax_chunks, sintax_words
+(the jobs' unique words summed), sintax_launches (the engine's kernel
+launches in this process; 0 through the server), sintax_draws_native and
+sintax_tally_native (the windows whose draws, and whose tally and vote,
+the C runtime made; the others took the Python loops, where the library
+is not built).
 """
 
 from __future__ import annotations
@@ -50,7 +51,8 @@ import numpy as np
 
 from .. import obs
 from ..card import as_card
-from .sintax import SintaxClassifier, _next_rand, ineligible
+from .sintax import (SintaxClassifier, _next_rand, ineligible,
+                     tally_strand, tally_tuples)
 
 if TYPE_CHECKING:
     from ..device import DeviceLike
@@ -281,23 +283,39 @@ class SintaxTorchClassifier:
         return per_q, winners, tops
 
     def tally(self, per_q, winners, tops, both: bool):
-        """Host tally and strand vote (as SintaxClassifier.classify)."""
-        from ..search.hitmgr import quick_sort_order
+        """Host tally and strand vote (as SintaxClassifier.classify): one
+        call of the C runtime a window (counted in sintax_tally_native)
+        where it is built, else a Python loop over the queries."""
+        from ..native import get_lib
         cls = self.cls
         B = cls.boots
+        lib = get_lib()
+        if lib is not None:
+            n = len(per_q)
+            job_map = np.array([[-1 if j is None else j for j in ixs]
+                                for ixs in per_q], np.int32).reshape(n, 2)
+            winners = np.ascontiguousarray(winners, np.int32)
+            tops = np.ascontiguousarray(tops, np.int32)
+            ntax = np.empty(n, np.int32)
+            ids = np.empty(n * B, np.int32)
+            cnts = np.empty(n * B, np.int32)
+            twc = np.empty(n, np.int32)
+            strand = np.empty(n, np.uint8)
+            lib.sintax_tally_window_c(
+                winners.ctypes.data, tops.ctypes.data, B,
+                job_map.ctypes.data, n, int(both), cls._tax_id.ctypes.data,
+                ntax.ctypes.data, ids.ctypes.data, cnts.ctypes.data,
+                twc.ctypes.data, strand.ctypes.data)
+            obs.add(self.stats, "sintax_tally_native", 1)
+            return tally_tuples(B, ntax, ids, cnts, twc, strand)
         res = []
         for fwd_ix, rev_ix in per_q:
 
             def strand_result(ji):
                 if ji is None:
                     return [], [], 0
-                w = winners[ji]
                 twc = int(tops[ji].max()) if B else 0
-                uti, ucnt = np.unique(cls._tax_id[w], return_counts=True)
-                order = quick_sort_order(ucnt.tolist(), desc=True)
-                ids = [int(uti[i]) for i in order]
-                counts = [int(ucnt[i]) for i in order]
-                return ids, counts, twc
+                return (*tally_strand(cls._tax_id, winners[ji]), twc)
 
             ids_f, cnt_f, twc_f = strand_result(fwd_ix)
             if both:

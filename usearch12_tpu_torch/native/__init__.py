@@ -254,6 +254,12 @@ def get_lib():
             vp, vp, vp, vp, vp, vp]
         lib.sintax_grand_draws_c.restype = None
         lib.sintax_grand_draws_c.argtypes = [vp, vp, i64]
+        lib.sintax_tally_window_c.restype = i64
+        lib.sintax_tally_window_c.argtypes = [
+            vp, vp, ctypes.c_int,                  # winners, tops, boots
+            vp, i64, ctypes.c_int,                 # job map, n_q, both
+            vp,                                    # tax ids
+            vp, vp, vp, vp, vp]           # ntax, ids, cnts, twc, strand
         lib.ee_sum_c.restype = ctypes.c_double
         lib.ee_sum_c.argtypes = [ctypes.c_char_p, i64, vp]
         lib.merge_pair_c.restype = i64

@@ -1289,6 +1289,95 @@ static void sx_qsort_desc(const int32_t *vals, int32_t *order,
         sx_qsort_desc(vals, order, i, right);
 }
 
+/* The winners' tax tally of one strand (CountMapToVecs): each boot's
+ * winning target's tax id counted in ascending tax-id order (the map's
+ * lexicographic order: the caller assigns ids lexicographically), then
+ * QuickSortOrderDesc over the counts, so ids/cnts come out in the final
+ * order.  boots <= a few hundred, so an insertion of the distinct ids is
+ * cheap.  Returns the number of distinct tax ids. */
+static int64_t sx_tally(const int32_t *tax_id, const int32_t *winners,
+                        int boots, int32_t *ids, int32_t *cnts)
+{
+    int64_t ntax = 0;
+    for (int boot = 0; boot < boots; ++boot) {
+        int32_t tx = tax_id[winners[boot]];
+        int64_t lo = 0, hi = ntax;
+        while (lo < hi) {                /* lower_bound */
+            int64_t mid = (lo + hi) >> 1;
+            if (ids[mid] < tx)
+                lo = mid + 1;
+            else
+                hi = mid;
+        }
+        if (lo < ntax && ids[lo] == tx) {
+            ++cnts[lo];
+        } else {
+            for (int64_t k = ntax; k > lo; --k) {
+                ids[k] = ids[k - 1];
+                cnts[k] = cnts[k - 1];
+            }
+            ids[lo] = tx;
+            cnts[lo] = 1;
+            ++ntax;
+        }
+    }
+    if (ntax > 1) {
+        int32_t stack_buf[3 * 256];
+        int32_t *buf = ntax <= 256 ? stack_buf
+            : (int32_t *)malloc((size_t)ntax * 3 * sizeof(int32_t));
+        int32_t *ord = buf, *tmp = buf + ntax;
+        for (int64_t k = 0; k < ntax; ++k)
+            ord[k] = (int32_t)k;
+        sx_qsort_desc(cnts, ord, 0, ntax - 1);
+        for (int64_t k = 0; k < ntax; ++k) {
+            tmp[k] = ids[ord[k]];
+            tmp[ntax + k] = cnts[ord[k]];
+        }
+        memcpy(ids, tmp, (size_t)ntax * sizeof(int32_t));
+        memcpy(cnts, tmp + ntax, (size_t)ntax * sizeof(int32_t));
+        if (buf != stack_buf)
+            free(buf);
+    }
+    return ntax;
+}
+
+/* The card path's tally and strand vote of a window
+ * (amplicon/sintax_device.py:SintaxTorchClassifier.tally): winners and
+ * tops (n_jobs, boots) as the boot step returns them, job_map (n_q, 2) the
+ * job of each query's forward and reverse strand, -1 where it has none.
+ * A strand's top word count is its boots' largest (0 without a job); the
+ * forward strand wins ties, and the '*'-row check reads the last
+ * classified strand's count, as in sintax_window_c.  Only the winning
+ * strand is tallied, into the same outputs as sintax_window_c's. */
+int64_t sintax_tally_window_c(
+    const int32_t *winners, const int32_t *tops, int boots,
+    const int32_t *job_map, int64_t n_q, int strand_both,
+    const int32_t *tax_id,
+    int32_t *out_ntax, int32_t *out_ids, int32_t *out_cnts,
+    int32_t *out_twc_last, uint8_t *out_strand)
+{
+    for (int64_t qi = 0; qi < n_q; ++qi) {
+        int32_t twc_s[2] = {0, 0};
+        for (int s = 0; s < (strand_both ? 2 : 1); ++s) {
+            int32_t j = job_map[2 * qi + s];
+            if (j < 0)
+                continue;
+            const int32_t *tp = tops + (size_t)j * boots;
+            for (int b = 0; b < boots; ++b)
+                if (tp[b] > twc_s[s])
+                    twc_s[s] = tp[b];
+        }
+        int use_fwd = twc_s[0] >= twc_s[1];
+        int32_t j = job_map[2 * qi + (use_fwd ? 0 : 1)];
+        out_ntax[qi] = j < 0 ? 0 : (int32_t)sx_tally(
+            tax_id, winners + (size_t)j * boots, boots,
+            out_ids + (size_t)qi * boots, out_cnts + (size_t)qi * boots);
+        out_twc_last[qi] = strand_both ? twc_s[1] : twc_s[0];
+        out_strand[qi] = use_fwd ? '+' : '-';
+    }
+    return n_q;
+}
+
 /* Lemire exact fastmod: a % d without a hardware divide. */
 static inline uint32_t sx_fastmod(uint32_t a, uint64_t magic, uint32_t d)
 {
@@ -1448,54 +1537,7 @@ int64_t sintax_boots_c(
     if (wis != wi_buf)
         free(wis);
     *out_twc = twc;
-    /* winner-tax tally in ascending tax-id order (CountMapToVecs'
-     * lexicographic map order: the caller assigns ids lexicographically).
-     * boots <= a few hundred, so an insertion sort of the distinct ids
-     * is cheap. */
-    int64_t ntax = 0;
-    for (int boot = 0; boot < boots; ++boot) {
-        int32_t tx = tax_id[out_top_ti[boot]];
-        int64_t lo = 0, hi = ntax;
-        while (lo < hi) {                /* lower_bound */
-            int64_t mid = (lo + hi) >> 1;
-            if (out_tax_ids[mid] < tx)
-                lo = mid + 1;
-            else
-                hi = mid;
-        }
-        if (lo < ntax && out_tax_ids[lo] == tx) {
-            ++out_tax_cnts[lo];
-        } else {
-            for (int64_t k = ntax; k > lo; --k) {
-                out_tax_ids[k] = out_tax_ids[k - 1];
-                out_tax_cnts[k] = out_tax_cnts[k - 1];
-            }
-            out_tax_ids[lo] = tx;
-            out_tax_cnts[lo] = 1;
-            ++ntax;
-        }
-    }
-    /* CountMapToVecs completes with QuickSortOrderDesc over the counts
-     * (map order = the ascending tax ids built above); emit in final
-     * order so the caller does no sorting */
-    if (ntax > 1) {
-        int32_t stack_buf[3 * 256];
-        int32_t *buf = ntax <= 256 ? stack_buf
-            : (int32_t *)malloc((size_t)ntax * 3 * sizeof(int32_t));
-        int32_t *ord = buf, *tmp = buf + ntax;
-        for (int64_t k = 0; k < ntax; ++k)
-            ord[k] = (int32_t)k;
-        sx_qsort_desc(out_tax_cnts, ord, 0, ntax - 1);
-        for (int64_t k = 0; k < ntax; ++k) {
-            tmp[k] = out_tax_ids[ord[k]];
-            tmp[ntax + k] = out_tax_cnts[ord[k]];
-        }
-        memcpy(out_tax_ids, tmp, (size_t)ntax * sizeof(int32_t));
-        memcpy(out_tax_cnts, tmp + ntax, (size_t)ntax * sizeof(int32_t));
-        if (buf != stack_buf)
-            free(buf);
-    }
-    return ntax;
+    return sx_tally(tax_id, out_top_ti, boots, out_tax_ids, out_tax_cnts);
 }
 
 /* Host fallback for device-emitted holes: banded/full NW per hole with

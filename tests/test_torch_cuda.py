@@ -5,6 +5,7 @@ present.  Run them on a machine with one:
     python -m pytest tests/test_torch_cuda.py -m cuda
 """
 
+import json
 import os
 import shutil
 import subprocess
@@ -102,6 +103,81 @@ def test_aligner_on_card_matches_cpu(card):
     s_cpu, p_cpu = wnw.TorchWaveAligner(ap, torch.device("cpu")).align(
         pairs, 32)
     assert np.array_equal(s_gpu, s_cpu) and p_gpu == p_cpu
+
+
+def test_aligner_spans_and_counters_on_card(card):
+    """One align on the card adds the hole DP's spans and counters to the
+    stats passed: holedp_launches is the forward plus traceback launches,
+    holedp_thread_launches the tracebacks that took the thread kernel, and
+    the CUDA events of holedp_device are made only while the profiler
+    records."""
+    ap = wnw.nucleo_params(-10.0, -1.0, -0.5, -0.5)
+    pairs = _pairs(5, 40, 1, 300)
+    # 10,001 pairs of 8 letters in one launch: a load past WARP_MAX_LOAD,
+    # the thread kernel
+    rng = np.random.default_rng(6)
+    conv = np.frombuffer(b"ACGT", np.uint8)
+    short = [(conv[rng.integers(0, 4, 8)], conv[rng.integers(0, 4, 8)])
+             for _ in range(10001)]
+    for ps, budget, thread in ((pairs, 1 << 16, 0), (short, 1 << 30, 1)):
+        aligner = wnw.TorchWaveAligner(ap, card, tb_budget=budget)
+        f0, t0 = wnw.wavefront_fwd.launches, wtr.wavefront_trace.launches
+        st = {}
+        aligner.align(ps, 16, stats=st)
+        launches = (wnw.wavefront_fwd.launches - f0
+                    + wtr.wavefront_trace.launches - t0)
+        assert st["holedp_launches"] == launches
+        assert st.get("holedp_thread_launches", 0) == thread
+        assert st["holedp_pairs"] == len(ps)
+        # the geometry once, then a packing and a collection a piece
+        assert st["holedp_collect_n"] == launches // 2
+        assert st["holedp_pack_n"] == 1 + st["holedp_collect_n"]
+        assert st["holedp_pack_ns"] > 0 and st["holedp_collect_ns"] > 0
+        assert "holedp_device_ns" not in st
+    assert launches == 2
+    aligner = wnw.TorchWaveAligner(ap, card, tb_budget=1 << 16)
+    st = {}
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        aligner.align(pairs, 16, stats=st, trace=True)
+    assert st["holedp_launches"] > 2
+    assert st["holedp_device_n"] == st["holedp_launches"] // 2
+    assert st["holedp_device_ns"] > 0
+
+
+def test_engine_holes_on_card_count_their_launches(card, tmp_path,
+                                                   monkeypatch):
+    """usearch_global on rrn operon reads with every round's holes on the
+    card: the engine's dev_stats carry the hole DP's spans and counters,
+    holedp_pairs the holes aligned there and holedp_launches the forward
+    plus traceback launches made; the blast6 bytes equal the host's."""
+    from test_torch_rrn_holes import OPTS, operon_set
+    from usearch12_tpu_torch import cli
+    db, q, _ = operon_set(2 ** 31 + 21, tmp_path)
+    out = {}
+    for name, extra in (("card", ["-dev_batch_cells", "0"]),
+                        ("host", ["-no_engine_device"])):
+        stats = tmp_path / f"{name}.stats"
+        monkeypatch.setenv("USEARCH_DEVICE_STATS", str(stats))
+        f0, t0 = wnw.wavefront_fwd.launches, wtr.wavefront_trace.launches
+        b6 = tmp_path / f"{name}.b6"
+        assert cli.main(["-usearch_global", q, "-db", db, "-blast6out",
+                         str(b6)] + OPTS + extra, device="cuda") == 0
+        ds = json.loads(stats.read_text().splitlines()[-1])
+        out[name] = (b6.read_bytes(), ds,
+                     wnw.wavefront_fwd.launches - f0
+                     + wtr.wavefront_trace.launches - t0)
+    b6, ds, launches = out["card"]
+    assert ds["dispatches"] > 0 and ds["host_cells"] == 0
+    assert ds["holedp_launches"] == launches >= 2 * ds["dispatches"]
+    assert ds["holedp_pairs"] > 100
+    # an align call a terminal class a dispatch: its geometry, then a
+    # packing and a collection a piece of two launches
+    assert ds["holedp_collect_n"] == ds["holedp_launches"] // 2
+    assert ds["holedp_pack_n"] - ds["holedp_collect_n"] >= ds["dispatches"]
+    assert ds["holedp_pack_ns"] > 0 and ds["holedp_collect_ns"] > 0
+    assert b6 == out["host"][0] and out["host"][2] == 0
 
 
 @pytest.mark.parametrize("radius,pen", [(16, (-10.0, -1.0, -0.5, -0.5)),

@@ -6,7 +6,8 @@ factories, which return the engine that the in-process route builds or a
 proxy of the server's copy of it, so that no consumer learns the route:
 
 - aligner(ap, cls_bits): ops/wavefront_nw.py's TorchWaveAligner of one
-  terminal-penalty class, align(pairs, band_radius, nucleo);
+  terminal-penalty class, align(pairs, band_radius, nucleo, stats=,
+  trace=);
 - csr_chunks(index, arrays, topk, bump, big): the CSR ranker's device
   half, ops/csr_rank.py's CSRChunks, run_chunk(qw, cap, stats=, trace=,
   seq=);
@@ -118,7 +119,8 @@ class _Held:
     def _run(self, *args):
         return self.client.run(self.kind, self.sig, args, self.load)
 
-    def align(self, pairs, band_radius: int, nucleo: bool = True):
+    def align(self, pairs, band_radius: int, nucleo: bool = True,
+              stats=None, trace=False):
         return self._run(pairs, band_radius, nucleo)
 
     def run_chunk(self, *args, stats=None, trace=False, seq=None):

@@ -36,7 +36,11 @@ request, the parse, the rank, each candidate round and its chain, holes
 and replay, the emit, the save of the run's records), each as <stage>_ns
 (host clock) and <stage>_n (obs.span; round_n counts the rounds), the
 counts queries and pairs (candidate pairs chained), and, with a rank
-override, its ranker's stages (ops/csr_host.py).  The USEARCH_DEVICE_STATS
+override, its ranker's stages (ops/csr_host.py), and, where a LocalCard
+aligns the holes, the hole DP's spans holedp_pack and holedp_collect (host
+clock only), its launches' time on the card's stream holedp_device and its
+counts holedp_pairs, holedp_launches and holedp_thread_launches
+(ops/wavefront_nw.py:TorchWaveAligner.align).  The USEARCH_DEVICE_STATS
 line that run_file appends carries them all.  While torch.profiler
 records (-xprof, a benchmark's traced window) each stage is also a
 "usearch.<stage>" range of the trace, nested under the ranges around it.
@@ -625,7 +629,8 @@ class BatchEngine:
                     pairs = [(jbuf[aoff[h]:aoff[h] + alen[h]],
                               db[boff[h]:boff[h] + blen[h]]) for h in idx]
                     _scores, ps = self._class_fused_aligner(int(c)).align(
-                        pairs, r, nucleo=True)
+                        pairs, r, nucleo=True, stats=self.dev_stats,
+                        trace=self.trace)
                     for k, h in enumerate(idx):
                         paths[h] = ps[k].encode("ascii")
                 if self.perf is not None:

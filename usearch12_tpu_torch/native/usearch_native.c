@@ -484,6 +484,11 @@ void hsp_destroy(HSPFinderC *hf)
 
 void hsp_set_a(HSPFinderC *hf, const byte *a, uint32_t la)
 {
+    /* sparse clear of previous dictionary, through its touched list,
+     * before a longer query replaces that list */
+    for (uint32_t i = 0; i < hf->n_touched; ++i)
+        hf->word_counts_a[hf->touched[i]] = 0;
+    hf->n_touched = 0;
     if (la + 1 > hf->cap_a) {
         free(hf->words_a);
         free(hf->touched);
@@ -491,10 +496,6 @@ void hsp_set_a(HSPFinderC *hf, const byte *a, uint32_t la)
         hf->words_a = (uint32_t *)malloc(hf->cap_a * sizeof(uint32_t));
         hf->touched = (uint32_t *)malloc(hf->cap_a * sizeof(uint32_t));
     }
-    /* sparse clear of previous dictionary */
-    for (uint32_t i = 0; i < hf->n_touched; ++i)
-        hf->word_counts_a[hf->touched[i]] = 0;
-    hf->n_touched = 0;
 
     hf->a = a;
     hf->la = la;

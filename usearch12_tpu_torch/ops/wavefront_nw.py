@@ -12,12 +12,12 @@ bit-exact against align/oracle.py.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, obs
 from ..align.oracle import band_diag_range
 from ..alpha import CHAR_TO_LETTER_NUCLEO
 from ..scoring import AlnParams, nuc_mx
@@ -275,13 +275,17 @@ class TorchWaveAligner:
         self.tb_budget = tb_budget
 
     def _launch(self, pairs: Sequence, band_radius: int,
-                device: torch.device, gp: torch.Tensor):
+                device: torch.device, gp: torch.Tensor, st: dict,
+                trace: bool):
         """Launch the forward DP and the traceback of `pairs` on `device`,
-        in pieces of at most tb_budget traceback bytes: a list of (slice of
-        pairs, scores, ops, lens), the last three on the device."""
+        in pieces of at most tb_budget traceback bytes, each packed while
+        the card runs the one before: a list of (slice of pairs, scores,
+        ops, lens, the launches' DeviceTimer), the middle three on the
+        device.  Spans and counters go to st."""
         n = len(pairs)
-        la, lb, dlo, bw = pair_geometry(pairs, band_radius)
-        nbytes = tb_nbytes(la, lb, bw)
+        with obs.span(st, "holedp_pack"):
+            la, lb, dlo, bw = pair_geometry(pairs, band_radius)
+            nbytes = tb_nbytes(la, lb, bw)
         out = []
         lo = 0
         while lo < n:
@@ -289,29 +293,56 @@ class TorchWaveAligner:
             hi = lo + max(1, int(np.searchsorted(
                 np.cumsum(nbytes[lo:]), self.tb_budget, side="right")))
             sl = slice(lo, hi)
-            w = pack_launch(pairs[sl], la[sl], lb[sl], dlo[sl], bw[sl],
-                            device)
+            with obs.span(st, "holedp_pack"):
+                w = pack_launch(pairs[sl], la[sl], lb[sl], dlo[sl], bw[sl],
+                                device)
+            thread0 = wavefront_trace.thread_launches
+            timer = obs.DeviceTimer(device, trace)
+            timer.start()
             tb, mlast, dlb = wavefront_fwd(*w, gp, self.match, self.mismatch)
-            out.append((sl,) + wavefront_trace(tb, w.tb_off, mlast, dlb,
-                                               w.la, w.lb, w.dlo, w.bw, gp))
+            out.append((sl, *wavefront_trace(tb, w.tb_off, mlast, dlb, w.la,
+                                             w.lb, w.dlo, w.bw, gp), timer))
+            timer.stop()
+            obs.add(st, "holedp_launches", 2)
+            obs.add(st, "holedp_thread_launches",
+                    wavefront_trace.thread_launches - thread0)
             lo = hi
+        obs.add(st, "holedp_pairs", n)
         return out
 
     @staticmethod
-    def _collect(n: int, launched) -> Tuple[np.ndarray, List[str]]:
+    def _collect(n: int, launched, st: dict) -> Tuple[np.ndarray, List[str]]:
         scores = np.zeros(n, np.float32)
         paths: List[str] = [""] * n
-        for sl, sc, ops, lens in launched:
-            scores[sl] = sc.cpu().numpy()
-            paths[sl] = decode_ops(ops.cpu().numpy(), lens.cpu().numpy())
+        for sl, sc, ops, lens, timer in launched:
+            with obs.span(st, "holedp_collect"):
+                scores[sl] = sc.cpu().numpy()
+                paths[sl] = decode_ops(ops.cpu().numpy(), lens.cpu().numpy())
+            ns = timer.ns()
+            if ns is not None:
+                obs.add(st, "holedp_device_ns", ns)
+                obs.add(st, "holedp_device_n", 1)
         return scores, paths
 
-    def align(self, pairs: Sequence, band_radius: int, nucleo: bool = True
+    def align(self, pairs: Sequence, band_radius: int, nucleo: bool = True,
+              stats: Optional[dict] = None, trace: bool = False
               ) -> Tuple[np.ndarray, List[str]]:
+        """Scores and paths of pairs; the spans holedp_pack (the pairs'
+        geometry, then each piece's packing and uploads: holedp_pack_n is
+        1 + the pieces) and holedp_collect (each piece's copies back and
+        decoding) and the counters holedp_pairs, holedp_launches (forward
+        plus traceback launches) and holedp_thread_launches (tracebacks
+        that took the thread kernel) go to `stats` (None: none kept), with
+        each launch's time on the device's stream in holedp_device_ns (on
+        a CUDA device only where `trace`: torch.profiler records).  The
+        two spans keep the host clock only, never a profiler range: the
+        profiler copies the innermost range around the card's copies onto
+        the card's timeline, where it would read as the card's work."""
         if not nucleo:
             raise ValueError("TorchWaveAligner scores nucleotides only")
+        st = {} if stats is None else stats
         return self._collect(len(pairs), self._launch(
-            pairs, band_radius, self.device, self.gp))
+            pairs, band_radius, self.device, self.gp, st, trace), st)
 
     def align_sharded(self, pairs: Sequence, band_radius: int, mesh,
                       axis: str = "data", nucleo: bool = True
@@ -326,6 +357,7 @@ class TorchWaveAligner:
         devs = list(mesh.devices[:, 0] if k == 0 else mesh.devices[0, :])
         n = len(pairs)
         per = -(-n // len(devs))
+        st = {}
         launched = []
         for d, dev in enumerate(devs):
             lo = d * per
@@ -333,9 +365,9 @@ class TorchWaveAligner:
             if len(block) == 0:
                 continue
             for sl, *res in self._launch(block, band_radius, dev,
-                                         self.gp.to(dev)):
+                                         self.gp.to(dev), st, False):
                 launched.append((slice(lo + sl.start, lo + sl.stop), *res))
-        return self._collect(n, launched)
+        return self._collect(n, launched, st)
 
 
 def native_nw_band(pairs: Sequence, band_radius: int, ap

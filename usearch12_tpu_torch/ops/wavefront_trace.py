@@ -145,10 +145,13 @@ def wavefront_trace(tb, tb_off, mlast, dlb, la, lb, dlo, bw, gp,
             lens.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch("wavefront_trace", err)
     wavefront_trace.launches += 1
+    wavefront_trace.thread_launches += not warp
     return scores, ops, lens
 
 
 wavefront_trace.launches = 0
+# launches that took the thread kernel
+wavefront_trace.thread_launches = 0
 
 
 def wavefront_trace_plain(tb, tb_off, mlast, dlb, la, lb, dlo, bw, gp,

@@ -10,7 +10,11 @@ Pipeline per query window (default 8192 records):
   3. candidate rounds: chain_batch_c HSP-chains the next candidate(s) of
      every live job; small inter-HSP holes are banded-NW'd inline in C,
      large holes are batched to the card (ops/wavefront_nw.py:
-     TorchWaveAligner) when the engine has a device
+     TorchWaveAligner) when the engine has a device.  Where windows run
+     one after another, a round's pairs are cut at job boundaries into
+     slices chained on threads at once, and the slices' plans are
+     appended into the window's own, the bytes one call writes
+     (_chain_round)
   4. finish_replay_c — splice paths, compute stats, replay the exact
      accept/terminate loop; jobs that terminated drop out
   5. emit hits per record in input order
@@ -35,7 +39,9 @@ dev_stats also holds the stages of every run_file call (STAGES: the
 request, the parse, the rank, each candidate round and its chain, holes
 and replay, the emit, the save of the run's records), each as <stage>_ns
 (host clock) and <stage>_n (obs.span; round_n counts the rounds), the
-counts queries and pairs (candidate pairs chained), and, with a rank
+counts queries and pairs (candidate pairs chained), chain_split_rounds
+(rounds chained on more than one thread) and chain_slices (their slices),
+and, with a rank
 override, its ranker's stages (ops/csr_host.py), and, where a LocalCard
 aligns the holes, the hole DP's spans holedp_pack and holedp_collect (host
 clock only), its launches' time on the card's stream holedp_device and its
@@ -87,6 +93,11 @@ COLD_WARM_TAX = 0.21     # s, first dispatch of a process over the second
 # and replay
 STAGES = ("request", "parse", "rank", "round", "chain", "holes", "replay",
           "emit", "save")
+# the fewest letters (its pairs' query and target letters) a slice of a
+# split chain round takes: below it the split, its threads woken after a
+# request's rank and its merge cost more than it saves (PERF.md section 6:
+# tools/chain_split_floor.py --pause 12 on the card's host, 129,536)
+SLICE_MIN_LETTERS = 131072
 
 
 class DevicePerfModel:
@@ -214,6 +225,14 @@ class DevicePerfModel:
         self.n_obs += 1
 
 
+def _cores() -> int:
+    """The cores this process may run on."""
+    try:
+        return len(os.sched_getaffinity(0))
+    except AttributeError:
+        return os.cpu_count() or 1
+
+
 def _thread_count() -> int:
     """Requested worker-thread count: -threads when set, else
     min(10, cores) — GetRequestedThreadCount semantics
@@ -221,11 +240,7 @@ def _thread_count() -> int:
     o = options()
     if o.filled("threads"):
         return max(1, int(o.uns("threads")))
-    try:
-        cores = len(os.sched_getaffinity(0))
-    except AttributeError:
-        cores = os.cpu_count() or 1
-    return min(10, cores)
+    return min(10, _cores())
 
 
 def engine_eligible(cmd: str, nucleo: bool, xlat: bool) -> bool:
@@ -259,7 +274,7 @@ class _Scratch:
                  "lit_cap", "hitpath_cap", "seg_kind", "seg_val",
                  "seg_val2", "hole_pair", "hole_aoff", "hole_boff",
                  "hole_alen", "hole_blen", "hole_cls", "lit_buf",
-                 "keep_alive")
+                 "keep_alive", "slices", "ptrs", "row")
 
     def __init__(self, lib, ah, nucleo, sub_mx, ctl_aln) -> None:
         self.hf = lib.hsp_create(ah.hsp_word_length,
@@ -272,6 +287,7 @@ class _Scratch:
         self.lit_cap = 1 << 20
         self.hitpath_cap = 1 << 20
         self.keep_alive = None
+        self.slices = 1         # the last chain round's (_chain_round)
         self.alloc_round_bufs()
 
     def alloc_round_bufs(self) -> None:
@@ -285,6 +301,27 @@ class _Scratch:
         self.hole_blen = np.empty(self.hole_cap, np.int32)
         self.hole_cls = np.empty(self.hole_cap, np.uint8)
         self.lit_buf = np.empty(self.lit_cap, np.uint8)
+        # the plan's addresses, in chain_plans_merge_c's order, and the
+        # scratch as a row of chain_split_c's table
+        self.ptrs = p = tuple(a.ctypes.data for a in (
+            self.seg_kind, self.seg_val, self.seg_val2, self.hole_pair,
+            self.hole_aoff, self.hole_boff, self.hole_alen, self.hole_blen,
+            self.hole_cls, self.lit_buf))
+        self.row = (self.hf, self.as_, self.es, *p[:3], self.seg_cap,
+                    *p[3:9], self.hole_cap, p[9], self.lit_cap)
+
+    def grow(self, code: int) -> None:
+        """Grow the buffer that chain_batch_c's return code (-1 segments,
+        -2 holes, -3 literal bytes) says overflowed."""
+        if code == -1:
+            self.seg_cap *= 4
+        elif code == -2:
+            self.hole_cap *= 4
+        elif code == -3:
+            self.lit_cap *= 4
+        else:
+            raise RuntimeError("chain_batch_c DP error")
+        self.alloc_round_bufs()
 
     def destroy(self, lib) -> None:
         try:
@@ -394,8 +431,6 @@ class BatchEngine:
         self._gp = GapParams.from_alnparams(ap)
 
         self._lock = threading.Lock()     # device/perf/stats guard
-        self._scratches: List[_Scratch] = []
-        self._sc = self._new_scratch()
 
         # db view
         seqs = db.seqs
@@ -406,6 +441,16 @@ class BatchEngine:
                           if len(seqs) else np.zeros(1, np.uint8))
         self._db_off = offs
         self._db_len = lens
+
+        self._scratches: List[_Scratch] = []
+        self._sc = self._new_scratch()
+        # the chain's split (_chain_round): the C runtime's pool of
+        # threads and a scratch a slice index, made at the first split
+        # that takes them and kept; a window-pool thread marks itself in
+        # _tls
+        self._chain_pool = None
+        self._slice_sc: List[_Scratch] = []
+        self._tls = threading.local()
 
         # device hole alignment: the card passed (a torch.device: its
         # LocalCard), or the factory's when a window first wants it;
@@ -433,7 +478,8 @@ class BatchEngine:
         self.dev_stats = {"dispatches": 0, "device_cells": 0,
                           "host_cells": 0, "rank_device_jobs": 0,
                           "rank_host_rerank_jobs": 0,
-                          "queries": 0, "pairs": 0}
+                          "queries": 0, "pairs": 0,
+                          "chain_split_rounds": 0, "chain_slices": 0}
         for k in STAGES:
             self.dev_stats[k + "_ns"] = self.dev_stats[k + "_n"] = 0
         # run_file's: whether torch.profiler records it, and its number
@@ -446,7 +492,11 @@ class BatchEngine:
                                         and self.card.type == "cuda"):
             self.perf = DevicePerfModel("cuda")
 
-    def _new_scratch(self) -> _Scratch:
+    def _new_scratch(self, share_twc: bool = True) -> _Scratch:
+        """A scratch of the engine's life; share_twc: it chains with the
+        first scratch's target-words cache (_sc and the split's slices,
+        which chain at once), else with a cache of its own (the window
+        pool's, a thread each)."""
         sc = _Scratch(self.lib, self.ah, self.ap.nucleo, self._sub_mx,
                       self._ctl_aln)
         if self.min_id >= 0.0:
@@ -458,10 +508,17 @@ class BatchEngine:
                 sc.rs, float(self.min_id), 1 if self.ap.nucleo else 0,
                 o.uns("stepwords"), getattr(self.index, "db_step", 1),
                 o.uns("big"))
+        if share_twc:
+            owner = self._scratches[0] if self._scratches else sc
+            self.lib.engine_scratch_share_twc(
+                sc.es, owner.es, self._db_concat.ctypes.data,
+                len(self._db_len), len(self._db_concat))
         self._scratches.append(sc)
         return sc
 
     def __del__(self):
+        if getattr(self, "_chain_pool", None):
+            self.lib.chain_pool_destroy(self._chain_pool)
         for sc in getattr(self, "_scratches", ()):
             sc.destroy(self.lib)
 
@@ -510,16 +567,20 @@ class BatchEngine:
         return cand, cnts, out_n
 
     def _chain_round(self, sc, jbuf, j_off, pair_j, pair_t):
-        """chain_batch_c with capacity retry; returns packed plan."""
-        lib = self.lib
+        """Chain a round's pairs; returns (status, pair_seg_off, n_hole),
+        the splice plan in sc's arrays.  A round that _slice_cuts cuts is
+        chained a slice a thread and merged (_chain_split): the same
+        bytes.  sc.slices is the round's slice count."""
+        cuts = self._slice_cuts(j_off, pair_j, pair_t)
+        sc.slices = len(cuts) - 1
+        if sc.slices == 1:
+            return self._chain_call(sc, jbuf, j_off, pair_j, pair_t)
+        return self._chain_split(sc, jbuf, j_off, pair_j, pair_t, cuts)
+
+    def _chain_args(self, jbuf, j_off, pair_j, pair_t):
+        """chain_batch_c's arguments from gp to pair_t."""
         ah = self.ah
-        n_pairs = len(pair_j)
-        status = np.empty(n_pairs, np.uint8)
-        pair_seg_off = np.empty(n_pairs + 1, np.int64)
-        while True:
-            n_hole = lib.chain_batch_c(
-                sc.hf, sc.as_, sc.es,
-                ctypes.byref(self._gp), self._sub_mx.ctypes.data,
+        return (ctypes.byref(self._gp), self._sub_mx.ctypes.data,
                 self._match.ctypes.data,
                 ah.band_radius, ah.min_global_hsp_length,
                 ah.min_global_hsp_fract_id, ah.min_global_hsp_score,
@@ -528,28 +589,105 @@ class BatchEngine:
                 jbuf.ctypes.data, j_off.ctypes.data,
                 self._db_concat.ctypes.data, self._db_off.ctypes.data,
                 self._db_len.ctypes.data,
-                pair_j.ctypes.data, pair_t.ctypes.data, n_pairs,
-                self.dev_min_cells,
-                status.ctypes.data,
-                sc.seg_kind.ctypes.data, sc.seg_val.ctypes.data,
-                sc.seg_val2.ctypes.data, pair_seg_off.ctypes.data,
-                sc.seg_cap,
-                sc.hole_pair.ctypes.data, sc.hole_aoff.ctypes.data,
-                sc.hole_boff.ctypes.data, sc.hole_alen.ctypes.data,
-                sc.hole_blen.ctypes.data, sc.hole_cls.ctypes.data,
-                sc.hole_cap,
-                sc.lit_buf.ctypes.data, sc.lit_cap)
+                pair_j.ctypes.data, pair_t.ctypes.data)
+
+    def _chain_call(self, sc, jbuf, j_off, pair_j, pair_t):
+        """chain_batch_c with capacity retry; returns packed plan."""
+        n_pairs = len(pair_j)
+        status = np.empty(n_pairs, np.uint8)
+        pair_seg_off = np.empty(n_pairs + 1, np.int64)
+        args = self._chain_args(jbuf, j_off, pair_j, pair_t) + (
+            n_pairs, self.dev_min_cells, status.ctypes.data)
+        pso = pair_seg_off.ctypes.data
+        while True:
+            p = sc.ptrs
+            n_hole = self.lib.chain_batch_c(
+                sc.hf, sc.as_, sc.es, *args, *p[:3], pso, sc.seg_cap,
+                *p[3:9], sc.hole_cap, p[9], sc.lit_cap)
             if n_hole >= 0:
                 return status, pair_seg_off, int(n_hole)
-            if n_hole == -1:
-                sc.seg_cap *= 4
-            elif n_hole == -2:
-                sc.hole_cap *= 4
-            elif n_hole == -3:
-                sc.lit_cap *= 4
-            else:
-                raise RuntimeError("chain_batch_c DP error")
+            sc.grow(n_hole)
+
+    def _slice_cuts(self, j_off, pair_j, pair_t,
+                    n_slices: Optional[int] = None) -> np.ndarray:
+        """The pair indexes [0, ..., n_pairs] that cut a round into
+        slices of whole jobs (chain_batch_c builds a query's words once a
+        job), balanced by letters (each pair's query and target letters).
+        n_slices: at most _thread_count() and the cores, at most a slice a
+        SLICE_MIN_LETTERS letters, and one on a window-pool thread, whose
+        windows already take the cores."""
+        n_pairs = len(pair_j)
+        starts = np.flatnonzero(pair_j[1:] != pair_j[:-1]) + 1
+        cum = np.cumsum((j_off[pair_j + 1] - j_off[pair_j])
+                        + self._db_len[pair_t])
+        if n_slices is None:
+            n_slices = 1 if getattr(self._tls, "window_pool", False) else \
+                min(_thread_count(), _cores(),
+                    int(cum[-1]) // SLICE_MIN_LETTERS)
+        n_slices = min(n_slices, len(starts) + 1)
+        if n_slices <= 1:
+            return np.array([0, n_pairs], np.int64)
+        # the job start whose letters before it come nearest each goal
+        before = cum[starts - 1]
+        goals = cum[-1] * np.arange(1, n_slices) / n_slices
+        k = np.abs(before[None, :] - goals[:, None]).argmin(axis=1)
+        return np.unique(np.concatenate(([0], starts[k], [n_pairs])))
+
+    def _chain_split(self, sc, jbuf, j_off, pair_j, pair_t, cuts):
+        """Chain the slices pair_j[cuts[k]:cuts[k + 1]] at once
+        (chain_split_c: the caller and the engine's pool of threads each
+        take the next slice left, so that no slice waits for a thread
+        still asleep), each on a scratch of its own (_slice_sc); the
+        slices that outgrew their scratches grow them and are chained
+        again, at once; then append each slice's plan to the one before
+        in sc's arrays, shifting its hole indexes, literal offsets, hole
+        pairs and segment offsets by what the slices before it hold
+        (chain_plans_merge_c): the arrays one chain_batch_c call over the
+        round writes."""
+        n = len(cuts) - 1
+        while len(self._slice_sc) < n:
+            self._slice_sc.append(self._new_scratch())
+        scs = self._slice_sc[:n]
+        if not self._chain_pool:
+            self._chain_pool = self.lib.chain_pool_create(
+                min(_thread_count(), _cores()) - 1)
+            if not self._chain_pool:
+                raise MemoryError("chain_pool_create")
+        n_pairs = len(pair_j)
+        cuts = np.ascontiguousarray(cuts, np.int64)
+        res = np.empty((n, 3), np.int64)
+        status = np.empty(n_pairs, np.uint8)
+        pso = np.empty(n_pairs + n, np.int64)
+        args = self._chain_args(jbuf, j_off, pair_j, pair_t)
+        todo = np.arange(n, dtype=np.int64)
+        while len(todo):
+            tab = np.array([s.row for s in scs], np.int64)
+            self.lib.chain_split_c(
+                self._chain_pool, len(todo), todo.ctypes.data,
+                cuts.ctypes.data, tab.ctypes.data, res.ctypes.data,
+                status.ctypes.data, pso.ctypes.data, *args,
+                self.dev_min_cells)
+            todo = np.flatnonzero(res[:, 0] < 0)
+            for k in todo:
+                scs[k].grow(int(res[k, 0]))
+        need = res.sum(axis=0)
+        grow = False
+        while sc.seg_cap < need[1]:
+            sc.seg_cap *= 4
+            grow = True
+        while sc.hole_cap < need[0]:
+            sc.hole_cap *= 4
+            grow = True
+        while sc.lit_cap < need[2]:
+            sc.lit_cap *= 4
+            grow = True
+        if grow:
             sc.alloc_round_bufs()
+        pair_seg_off = np.empty(n_pairs + 1, np.int64)
+        n_hole = self.lib.chain_plans_merge_c(
+            n, cuts.ctypes.data, tab.ctypes.data, res.ctypes.data,
+            pso.ctypes.data, pair_seg_off.ctypes.data, *sc.ptrs)
+        return status, pair_seg_off, int(n_hole)
 
     def _align_holes(self, sc, jbuf, n_hole: int):
         """Align the round's holes: on the device per terminal class,
@@ -805,6 +943,9 @@ class BatchEngine:
                 with obs.span(st, "chain", tr, seq):
                     status, pair_seg_off, n_hole = self._chain_round(
                         sc, jbuf, j_off, pair_j, pair_t)
+                if sc.slices > 1:
+                    obs.add(st, "chain_split_rounds", 1)
+                    obs.add(st, "chain_slices", sc.slices)
                 if n_hole:
                     with obs.span(st, "holes", tr, seq):
                         hole_paths, hole_off = self._align_holes(sc, jbuf,
@@ -1037,8 +1178,10 @@ class BatchEngine:
                 sc = getattr(tl, "sc", None)
                 if sc is None:
                     with self._lock:
-                        sc = self._new_scratch()
+                        sc = self._new_scratch(share_twc=False)
                     tl.sc = sc
+                    # windows and chain slices never nest (_slice_cuts)
+                    self._tls.window_pool = True
                 return compute_window(b[0], b[1], sc)
 
             self._windows_left = n_windows

@@ -59,8 +59,9 @@ def _build() -> Optional[str]:
     # -Werror=implicit-function-declaration: an undeclared extern would
     # promote float args to double at the call site and silently corrupt
     # DP parameters
-    for flags in (["-O3", "-march=native", "-ffp-contract=off"],
-                  ["-O2"]):
+    # -pthread: the chain pool's threads (chain_split_c)
+    for flags in (["-O3", "-march=native", "-ffp-contract=off", "-pthread"],
+                  ["-O2", "-pthread"]):
         try:
             subprocess.run(
                 ["gcc", *flags, "-Werror=implicit-function-declaration",
@@ -177,6 +178,8 @@ def get_lib():
         i64 = ctypes.c_int64
         lib.engine_scratch_create.restype = vp
         lib.engine_scratch_destroy.argtypes = [vp]
+        lib.engine_scratch_share_twc.restype = ctypes.c_int
+        lib.engine_scratch_share_twc.argtypes = [vp, vp, vp, i64, i64]
         lib.fasta_parse_c.restype = i64
         lib.fasta_parse_c.argtypes = [vp, i64, vp, vp, i64, vp, vp, vp,
                                       i64, vp]
@@ -206,6 +209,24 @@ def get_lib():
             vp, vp, vp, vp, i64,                  # segs
             vp, vp, vp, vp, vp, vp, i64,          # holes
             vp, i64]                              # lit buf
+        lib.chain_pool_create.restype = vp
+        lib.chain_pool_create.argtypes = [ctypes.c_int]
+        lib.chain_pool_destroy.restype = None
+        lib.chain_pool_destroy.argtypes = [vp]
+        lib.chain_plan_lit_bytes.restype = i64
+        lib.chain_plan_lit_bytes.argtypes = [vp, vp, vp, i64]
+        lib.chain_split_c.restype = None
+        lib.chain_split_c.argtypes = [
+            vp, i64, vp, vp, vp, vp, vp, vp,      # pool, n_todo, todo, cuts,
+                                                  # tab, res, status, pso
+            ctypes.POINTER(GapParams), vp, vp,    # gp, sub_mx, match_mx
+            ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
+            ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+            vp, vp,                               # jbuf, j_off
+            vp, vp, vp,                           # db, db_off, db_len
+            vp, vp, i64]                          # pair_j, pair_t, dev_min
+        lib.chain_plans_merge_c.restype = i64
+        lib.chain_plans_merge_c.argtypes = [i64] + [vp] * 15
         lib.blast6_emit_c.restype = i64
         lib.blast6_emit_c.argtypes = [
             vp, vp, vp, i64, ctypes.c_int32, vp,   # raw, loff, lend, nrec, jpr, j_off

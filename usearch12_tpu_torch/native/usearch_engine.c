@@ -85,7 +85,7 @@ extern int64_t usort_rank_c(
 /* ---------------------------------------------------------------- */
 /* growable scratch shared across engine calls                      */
 
-typedef struct {
+typedef struct EngineScratch {
     byte *tb;           /* DP traceback scratch */
     size_t tb_cap;
     float *mrow, *drow;
@@ -112,11 +112,49 @@ typedef struct {
     int64_t twc_n_cap;
     uint32_t *twc_words;
     int64_t twc_words_cap;
+    /* the scratch whose cache chain_batch_c reads and fills in place of
+     * this one's, sized once to the whole db and filled atomically
+     * (engine_scratch_share_twc); NULL: this scratch's own */
+    struct EngineScratch *twc_src;
 } EngineScratch;
 
 EngineScratch *engine_scratch_create(void)
 {
     return (EngineScratch *)calloc(1, sizeof(EngineScratch));
+}
+
+/* Make es chain with owner's target-words cache (owner may be es).  The
+ * owner's cache is sized now to db's n_targets targets and n_letters
+ * letters and never moves again; chain_batch_c claims an entry, writes
+ * its words and then publishes its count with an atomic store, so
+ * scratches chaining on several threads at once share one cache.  The
+ * words are a pure function of the target, so the plans stay the same
+ * bytes.  Returns 0, or -1 when memory runs out (es keeps its own). */
+int engine_scratch_share_twc(EngineScratch *es, EngineScratch *owner,
+                             const void *db, int64_t n_targets,
+                             int64_t n_letters)
+{
+    if (owner->twc_src != owner) {
+        int32_t *nn = (int32_t *)calloc((size_t)n_targets + 1,
+                                        sizeof(int32_t));
+        uint32_t *nw = (uint32_t *)malloc(((size_t)n_letters + 1) *
+                                          sizeof(uint32_t));
+        if (!nn || !nw) {
+            free(nn);
+            free(nw);
+            return -1;
+        }
+        free(owner->twc_n);
+        free(owner->twc_words);
+        owner->twc_db = db;
+        owner->twc_n = nn;
+        owner->twc_n_cap = n_targets;
+        owner->twc_words = nw;
+        owner->twc_words_cap = n_letters;
+        owner->twc_src = owner;
+    }
+    es->twc_src = owner;
+    return 0;
 }
 
 void engine_scratch_destroy(EngineScratch *s)
@@ -359,11 +397,80 @@ static void eng_band_range(uint32_t la, uint32_t lb, uint32_t band_radius,
 #define PAIR_FAIL 0    /* not aligned (gates) */
 #define PAIR_PLAN 1    /* plan emitted */
 
+/* Point hf's target at db's target t, its HSP words from the target-words
+ * cache: es's own (grown as targets come), or the shared one that
+ * engine_scratch_share_twc gave es, whose slot is 0 (free), -1 (being
+ * written by another thread) or the word count + 1. */
+static void chain_set_b(EngineScratch *es, HSPFinderC *hf,
+                        const uint8_t *db, const int64_t *db_off,
+                        const int64_t *db_len, uint32_t t)
+{
+    const uint8_t *b = db + db_off[t];
+    uint32_t lb = (uint32_t)db_len[t];
+    int64_t wend = db_off[t] + db_len[t];
+    const EngineScratch *tw = es->twc_src;
+    if (tw && tw->twc_db == (const void *)db && (int64_t)t < tw->twc_n_cap
+        && wend <= tw->twc_words_cap) {
+        int32_t *slot = &tw->twc_n[t];
+        int32_t n = __atomic_load_n(slot, __ATOMIC_ACQUIRE);
+        int32_t empty = 0;
+        if (n > 0) {
+            hsp_set_b_view(hf, b, lb, tw->twc_words + db_off[t],
+                           (uint32_t)(n - 1));
+            return;
+        }
+        hsp_set_b(hf, b, lb);
+        if (n == 0 && __atomic_compare_exchange_n(slot, &empty, -1, 0,
+                                                  __ATOMIC_ACQUIRE,
+                                                  __ATOMIC_RELAXED)) {
+            uint32_t nwb = hsp_b_word_count(hf);
+            memcpy(tw->twc_words + db_off[t], hsp_b_words(hf),
+                   (size_t)nwb * sizeof(uint32_t));
+            __atomic_store_n(slot, (int32_t)nwb + 1, __ATOMIC_RELEASE);
+        }
+        return;
+    }
+    if (es->twc_db != (const void *)db) {
+        es->twc_db = (const void *)db;
+        if (es->twc_n)
+            memset(es->twc_n, 0, (size_t)es->twc_n_cap * sizeof(int32_t));
+    }
+    if ((int64_t)t >= es->twc_n_cap) {
+        int64_t nc = (int64_t)t * 2 + 1024;
+        int32_t *nn = (int32_t *)calloc((size_t)nc, sizeof(int32_t));
+        if (es->twc_n) {
+            memcpy(nn, es->twc_n, (size_t)es->twc_n_cap * sizeof(int32_t));
+            free(es->twc_n);
+        }
+        es->twc_n = nn;
+        es->twc_n_cap = nc;
+    }
+    if (wend > es->twc_words_cap) {
+        int64_t nc = wend * 2 + 4096;
+        uint32_t *nw = (uint32_t *)realloc(
+            es->twc_words, (size_t)nc * sizeof(uint32_t));
+        es->twc_words = nw;
+        es->twc_words_cap = nc;
+    }
+    if (es->twc_n[t] == 0) {
+        hsp_set_b(hf, b, lb);
+        uint32_t nwb = hsp_b_word_count(hf);
+        memcpy(es->twc_words + db_off[t], hsp_b_words(hf),
+               (size_t)nwb * sizeof(uint32_t));
+        es->twc_n[t] = (int32_t)nwb + 1;
+    } else {
+        hsp_set_b_view(hf, b, lb, es->twc_words + db_off[t],
+                       (uint32_t)(es->twc_n[t] - 1));
+    }
+}
+
 /* Chain a batch of pairs.  Pairs must be grouped by job (pair_j) so the
  * query word dictionary is built once per job.  Holes with
  * leni*lenj >= dev_min_cells are emitted to the hole arrays (device);
  * smaller holes (and everything when dev_min_cells < 0 is given as a
- * huge number) are banded-NW'd inline into lit_buf.
+ * huge number) are banded-NW'd inline into lit_buf.  seg_val2 is a
+ * SEG_LIT's length and 0 for every other kind, so the plan's bytes are
+ * defined wherever it is used.
  * Returns the hole count, or -(1+needed_kind) on capacity overflow:
  *   -1 seg cap, -2 hole cap, -3 lit cap.  Caller grows and retries. */
 int64_t chain_batch_c(
@@ -401,41 +508,7 @@ int64_t chain_batch_c(
         /* target-words cache: with maxaccepts+maxrejects candidates
          * per query, every target's words are re-extracted many times
          * per window without it */
-        if (es->twc_db != (const void *)db) {
-            es->twc_db = (const void *)db;
-            if (es->twc_n)
-                memset(es->twc_n, 0,
-                       (size_t)es->twc_n_cap * sizeof(int32_t));
-        }
-        if ((int64_t)t >= es->twc_n_cap) {
-            int64_t nc = (int64_t)t * 2 + 1024;
-            int32_t *nn = (int32_t *)calloc((size_t)nc, sizeof(int32_t));
-            if (es->twc_n) {
-                memcpy(nn, es->twc_n,
-                       (size_t)es->twc_n_cap * sizeof(int32_t));
-                free(es->twc_n);
-            }
-            es->twc_n = nn;
-            es->twc_n_cap = nc;
-        }
-        int64_t wend = db_off[t] + db_len[t];
-        if (wend > es->twc_words_cap) {
-            int64_t nc = wend * 2 + 4096;
-            uint32_t *nw = (uint32_t *)realloc(
-                es->twc_words, (size_t)nc * sizeof(uint32_t));
-            es->twc_words = nw;
-            es->twc_words_cap = nc;
-        }
-        if (es->twc_n[t] == 0) {
-            hsp_set_b(hf, b, lb);
-            uint32_t nwb = hsp_b_word_count(hf);
-            memcpy(es->twc_words + db_off[t], hsp_b_words(hf),
-                   (size_t)nwb * sizeof(uint32_t));
-            es->twc_n[t] = (int32_t)nwb + 1;
-        } else {
-            hsp_set_b_view(hf, b, lb, es->twc_words + db_off[t],
-                           (uint32_t)(es->twc_n[t] - 1));
-        }
+        chain_set_b(es, hf, db, db_off, db_len, t);
         float fract = 0.0f;
         int nch = global_chain_c(hf, as, match_mx, min_hsp_len,
                                  min_hsp_fract, min_hsp_score, xdrop_g,
@@ -469,6 +542,7 @@ int64_t chain_batch_c(
                 hole_cls[n_hole] = 0xF;   /* all four edges terminal */
                 seg_kind[n_seg] = SEG_HOLE;
                 seg_val[n_seg] = n_hole;
+                seg_val2[n_seg] = 0;
                 ++n_hole;
                 ++n_seg;
             } else {
@@ -529,12 +603,14 @@ int64_t chain_batch_c(
                     return -1;
                 seg_kind[n_seg] = SEG_I;
                 seg_val[n_seg] = hlenj;
+                seg_val2[n_seg] = 0;
                 ++n_seg;
             } else if (hlenj == 0 && hleni > 0) {
                 if (n_seg + 1 > seg_cap)
                     return -1;
                 seg_kind[n_seg] = SEG_D;
                 seg_val[n_seg] = hleni;
+                seg_val2[n_seg] = 0;
                 ++n_seg;
             } else if (hleni > 0 && hlenj > 0) {
                 if (n_seg + 1 > seg_cap)
@@ -556,6 +632,7 @@ int64_t chain_batch_c(
                                                  (right_b << 3));
                     seg_kind[n_seg] = SEG_HOLE;
                     seg_val[n_seg] = n_hole;
+                    seg_val2[n_seg] = 0;
                     ++n_hole;
                     ++n_seg;
                 } else {
@@ -593,6 +670,7 @@ int64_t chain_batch_c(
                     return -1;
                 seg_kind[n_seg] = SEG_M;
                 seg_val[n_seg] = h[2];
+                seg_val2[n_seg] = 0;
                 ++n_seg;
                 prev_hii = h[0] + h[2] - 1;
                 prev_hij = h[1] + h[3] - 1;
@@ -602,6 +680,331 @@ int64_t chain_batch_c(
         pair_seg_off[p + 1] = n_seg;
     }
     return n_hole;
+}
+
+/* ---------------------------------------------------------------- */
+/* A split chain round (engine/batch.py: BatchEngine._chain_split).
+ *
+ * A round's pairs, cut at job boundaries into n slices (cuts[0] = 0 ..
+ * cuts[n] = n_pairs), are chained at once, each on a scratch of its own
+ * (a row of tab), by the caller and the threads of a ChainPool, each
+ * taking the next slice left, so that no round waits for a thread still
+ * asleep: where every thread sleeps, the caller chains every slice.  The
+ * threads are the pool's own, made once with it, and never enter the
+ * interpreter.  chain_plans_merge_c then appends the slices' plans in
+ * order into the window's arrays, the bytes one chain_batch_c call over
+ * the whole round writes.
+ *
+ * A round is posted in one atomic word, post = round << 32 | n << 16 |
+ * next slice, and a slice is taken by a compare-and-swap of that word,
+ * so a thread takes a slice only of the round the word holds, and sees
+ * that round's arguments; the caller posts the next round only once every
+ * slice taken is done. */
+
+#include <pthread.h>
+#include <time.h>
+
+/* a slice scratch's row of tab: hf, as, es, seg_kind, seg_val,
+ * seg_val2, seg_cap, hole_pair, hole_aoff, hole_boff, hole_alen,
+ * hole_blen, hole_cls, hole_cap, lit_buf, lit_cap */
+#define CP_ROW 16
+/* a thread that found no slice left looks for the next round this long
+ * before it sleeps: a round's replay and the next round's set-up take
+ * less */
+#define CP_SPIN_NS 1000000L
+#define CP_MAX_SLICES 0xFFFF
+#if defined(__x86_64__) || defined(__i386__)
+#define CP_RELAX() __builtin_ia32_pause()
+#elif defined(__aarch64__)
+#define CP_RELAX() __asm__ __volatile__("yield")
+#else
+#define CP_RELAX() do {} while (0)
+#endif
+
+typedef struct {
+    const GapParams *gp;
+    const float *sub_mx;
+    const byte *match_mx;
+    uint32_t band_radius, min_hsp_len;
+    float min_hsp_fract, min_hsp_score, xdrop_g;
+    int full_dp_always, fail_if_no_hsps;
+    const uint8_t *jbuf;
+    const int64_t *j_off;
+    const uint8_t *db;
+    const int64_t *db_off, *db_len;
+    const int32_t *pair_j;
+    const uint32_t *pair_t;
+    int64_t dev_min_cells;
+    uint8_t *status;
+    int64_t *pso;          /* slice k's pair_seg_off at cuts[k] + k */
+    const int64_t *todo, *cuts, *tab;
+    int64_t *res;          /* a slice: chain_batch_c's return, its
+                            * segments, its literal bytes */
+} ChainRound;
+
+typedef struct {
+    pthread_mutex_t mu;
+    pthread_cond_t go;
+    uint64_t post;         /* round << 32 | n << 16 | next slice */
+    int64_t done;          /* the round's slices chained */
+    int sleepers;
+    int stop;
+    int n_threads;
+    pthread_t *threads;
+    ChainRound r;
+} ChainPool;
+
+static int64_t cp_ns_since(const struct timespec *t0)
+{
+    struct timespec t;
+    clock_gettime(CLOCK_MONOTONIC, &t);
+    return (int64_t)(t.tv_sec - t0->tv_sec) * 1000000000L
+           + (t.tv_nsec - t0->tv_nsec);
+}
+
+/* the literal bytes of a plan of n_seg segments */
+int64_t chain_plan_lit_bytes(const uint8_t *kind, const int64_t *val,
+                             const int64_t *val2, int64_t n_seg)
+{
+    for (int64_t s = n_seg - 1; s >= 0; --s)
+        if (kind[s] == SEG_LIT)
+            return val[s] + val2[s];
+    return 0;
+}
+
+/* Take the next slice of round `round` (the word's top 32 bits): its
+ * index into todo, or -1 where that round has none left or is over. */
+static int64_t cp_take(ChainPool *p, uint32_t round)
+{
+    uint64_t w = __atomic_load_n(&p->post, __ATOMIC_ACQUIRE);
+    for (;;) {
+        if ((uint32_t)(w >> 32) != round
+            || (w & CP_MAX_SLICES) >= ((w >> 16) & CP_MAX_SLICES))
+            return -1;
+        if (__atomic_compare_exchange_n(&p->post, &w, w + 1, 0,
+                                        __ATOMIC_ACQ_REL, __ATOMIC_ACQUIRE))
+            return (int64_t)(w & CP_MAX_SLICES);
+    }
+}
+
+static void cp_chain(const ChainRound *r, int64_t i)
+{
+    int64_t k = r->todo[i];
+    const int64_t *row = r->tab + k * CP_ROW;
+    int64_t lo = r->cuts[k], n_pairs = r->cuts[k + 1] - lo;
+    int64_t *pso = r->pso + lo + k;
+    int64_t *res = r->res + 3 * k;
+    res[0] = chain_batch_c(
+        (HSPFinderC *)row[0], (AlignScratch *)row[1],
+        (EngineScratch *)row[2], r->gp, r->sub_mx, r->match_mx,
+        r->band_radius, r->min_hsp_len, r->min_hsp_fract,
+        r->min_hsp_score, r->xdrop_g, r->full_dp_always,
+        r->fail_if_no_hsps, r->jbuf, r->j_off, r->db, r->db_off,
+        r->db_len, r->pair_j + lo, r->pair_t + lo, n_pairs,
+        r->dev_min_cells, r->status + lo,
+        (uint8_t *)row[3], (int64_t *)row[4], (int64_t *)row[5], pso,
+        row[6], (int32_t *)row[7], (int64_t *)row[8], (int64_t *)row[9],
+        (int32_t *)row[10], (int32_t *)row[11], (uint8_t *)row[12],
+        row[13], (char *)row[14], row[15]);
+    if (res[0] >= 0) {
+        res[1] = pso[n_pairs];
+        res[2] = chain_plan_lit_bytes((const uint8_t *)row[3],
+                                      (const int64_t *)row[4],
+                                      (const int64_t *)row[5], res[1]);
+    }
+}
+
+/* Take and chain the slices of `round` until none is left. */
+static void cp_work(ChainPool *p, uint32_t round)
+{
+    int64_t i;
+    while ((i = cp_take(p, round)) >= 0) {
+        cp_chain(&p->r, i);
+        __atomic_add_fetch(&p->done, 1, __ATOMIC_RELEASE);
+    }
+}
+
+/* A thread's life: help with each round posted after `seen`, spinning
+ * CP_SPIN_NS for the next one before it sleeps, until the pool stops. */
+static void *cp_serve(void *arg)
+{
+    ChainPool *p = (ChainPool *)arg;
+    uint32_t seen = (uint32_t)(__atomic_load_n(&p->post, __ATOMIC_ACQUIRE)
+                               >> 32);
+    for (;;) {
+        struct timespec t0;
+        clock_gettime(CLOCK_MONOTONIC, &t0);
+        uint32_t round;
+        for (unsigned i = 1;; ++i) {
+            round = (uint32_t)(__atomic_load_n(&p->post, __ATOMIC_ACQUIRE)
+                               >> 32);
+            if (round != seen || __atomic_load_n(&p->stop, __ATOMIC_ACQUIRE))
+                break;
+            if ((i & 1023) == 0 && cp_ns_since(&t0) > CP_SPIN_NS) {
+                pthread_mutex_lock(&p->mu);
+                ++p->sleepers;
+                while ((uint32_t)(__atomic_load_n(&p->post, __ATOMIC_ACQUIRE)
+                                  >> 32) == seen && !p->stop)
+                    pthread_cond_wait(&p->go, &p->mu);
+                --p->sleepers;
+                pthread_mutex_unlock(&p->mu);
+            }
+            CP_RELAX();
+        }
+        if (__atomic_load_n(&p->stop, __ATOMIC_ACQUIRE))
+            return NULL;
+        seen = round;
+        cp_work(p, round);
+    }
+}
+
+/* A pool of n_threads threads (fewer where the system gives fewer; NULL
+ * where it gives no memory).  One caller of chain_split_c at a time. */
+ChainPool *chain_pool_create(int n_threads)
+{
+    ChainPool *p = (ChainPool *)calloc(1, sizeof(ChainPool));
+    if (!p)
+        return NULL;
+    p->threads = (pthread_t *)calloc((size_t)(n_threads > 0 ? n_threads
+                                              : 1), sizeof(pthread_t));
+    if (!p->threads) {
+        free(p);
+        return NULL;
+    }
+    pthread_mutex_init(&p->mu, NULL);
+    pthread_cond_init(&p->go, NULL);
+    for (int t = 0; t < n_threads; ++t) {
+        if (pthread_create(&p->threads[t], NULL, cp_serve, p) != 0)
+            break;
+        ++p->n_threads;
+    }
+    return p;
+}
+
+/* Stop the pool's threads, wait for them and free it. */
+void chain_pool_destroy(ChainPool *p)
+{
+    if (!p)
+        return;
+    pthread_mutex_lock(&p->mu);
+    __atomic_store_n(&p->stop, 1, __ATOMIC_RELEASE);
+    pthread_cond_broadcast(&p->go);
+    pthread_mutex_unlock(&p->mu);
+    for (int t = 0; t < p->n_threads; ++t)
+        pthread_join(p->threads[t], NULL);
+    pthread_mutex_destroy(&p->mu);
+    pthread_cond_destroy(&p->go);
+    free(p->threads);
+    free(p);
+}
+
+/* Chain the slices todo[0 .. n_todo) of a round at once (n_todo at most
+ * CP_MAX_SLICES).  Each slice k's row of res is chain_batch_c's return
+ * (negative: the caller grows that slice's scratch and chains it again),
+ * its segments and its literal bytes; its status goes to status[cuts[k]
+ * ..], its pair_seg_off to pso[cuts[k] + k ..]. */
+void chain_split_c(
+    ChainPool *p, int64_t n_todo, const int64_t *todo, const int64_t *cuts,
+    const int64_t *tab, int64_t *res, uint8_t *status, int64_t *pso,
+    const GapParams *gp, const float *sub_mx, const byte *match_mx,
+    uint32_t band_radius, uint32_t min_hsp_len, float min_hsp_fract,
+    float min_hsp_score, float xdrop_g, int full_dp_always,
+    int fail_if_no_hsps,
+    const uint8_t *jbuf, const int64_t *j_off,
+    const uint8_t *db, const int64_t *db_off, const int64_t *db_len,
+    const int32_t *pair_j, const uint32_t *pair_t, int64_t dev_min_cells)
+{
+    ChainRound *r = &p->r;
+    r->gp = gp;
+    r->sub_mx = sub_mx;
+    r->match_mx = match_mx;
+    r->band_radius = band_radius;
+    r->min_hsp_len = min_hsp_len;
+    r->min_hsp_fract = min_hsp_fract;
+    r->min_hsp_score = min_hsp_score;
+    r->xdrop_g = xdrop_g;
+    r->full_dp_always = full_dp_always;
+    r->fail_if_no_hsps = fail_if_no_hsps;
+    r->jbuf = jbuf;
+    r->j_off = j_off;
+    r->db = db;
+    r->db_off = db_off;
+    r->db_len = db_len;
+    r->pair_j = pair_j;
+    r->pair_t = pair_t;
+    r->dev_min_cells = dev_min_cells;
+    r->status = status;
+    r->pso = pso;
+    r->todo = todo;
+    r->cuts = cuts;
+    r->tab = tab;
+    r->res = res;
+    __atomic_store_n(&p->done, 0, __ATOMIC_RELAXED);
+    uint32_t round = (uint32_t)(__atomic_load_n(&p->post, __ATOMIC_RELAXED)
+                                >> 32) + 1;
+    __atomic_store_n(&p->post, (uint64_t)round << 32
+                     | (uint64_t)n_todo << 16, __ATOMIC_RELEASE);
+    pthread_mutex_lock(&p->mu);
+    if (p->sleepers)
+        pthread_cond_broadcast(&p->go);
+    pthread_mutex_unlock(&p->mu);
+    cp_work(p, round);
+    /* the slices left are on threads that are chaining them */
+    while (__atomic_load_n(&p->done, __ATOMIC_ACQUIRE) < n_todo)
+        CP_RELAX();
+}
+
+/* Append the n slices' plans in order into the window's arrays (d_*):
+ * slice k's segment offsets at cuts[k] (each + the segments before it),
+ * its segments (a SEG_HOLE's index + the holes before it, a SEG_LIT's
+ * offset + the literal bytes before it), its holes (each pair +
+ * cuts[k]) and its literal bytes: the arrays one chain_batch_c call over
+ * the round writes.  res and pso as chain_split_c left them; returns the
+ * round's holes. */
+int64_t chain_plans_merge_c(
+    int64_t n, const int64_t *cuts, const int64_t *tab, const int64_t *res,
+    const int64_t *pso, int64_t *d_pso,
+    uint8_t *d_seg_kind, int64_t *d_seg_val, int64_t *d_seg_val2,
+    int32_t *d_hole_pair, int64_t *d_hole_aoff, int64_t *d_hole_boff,
+    int32_t *d_hole_alen, int32_t *d_hole_blen, uint8_t *d_hole_cls,
+    char *d_lit_buf)
+{
+    int64_t seg0 = 0, hole0 = 0, lit0 = 0;
+    d_pso[0] = 0;
+    for (int64_t k = 0; k < n; ++k) {
+        const int64_t *row = tab + k * CP_ROW;
+        const uint8_t *kind = (const uint8_t *)row[3];
+        const int64_t *val = (const int64_t *)row[4];
+        int64_t lo = cuts[k], n_pairs = cuts[k + 1] - lo;
+        int64_t n_hole = res[3 * k], n_seg = res[3 * k + 1];
+        int64_t n_lit = res[3 * k + 2];
+        for (int64_t q = 1; q <= n_pairs; ++q)
+            d_pso[lo + q] = pso[lo + k + q] + seg0;
+        memcpy(d_seg_kind + seg0, kind, (size_t)n_seg);
+        memcpy(d_seg_val2 + seg0, (const int64_t *)row[5],
+               (size_t)n_seg * sizeof(int64_t));
+        for (int64_t s = 0; s < n_seg; ++s)
+            d_seg_val[seg0 + s] = val[s] + (kind[s] == SEG_HOLE ? hole0
+                                            : kind[s] == SEG_LIT ? lit0
+                                            : 0);
+        const int32_t *hp = (const int32_t *)row[7];
+        for (int64_t h = 0; h < n_hole; ++h)
+            d_hole_pair[hole0 + h] = hp[h] + (int32_t)lo;
+        memcpy(d_hole_aoff + hole0, (const int64_t *)row[8],
+               (size_t)n_hole * sizeof(int64_t));
+        memcpy(d_hole_boff + hole0, (const int64_t *)row[9],
+               (size_t)n_hole * sizeof(int64_t));
+        memcpy(d_hole_alen + hole0, (const int32_t *)row[10],
+               (size_t)n_hole * sizeof(int32_t));
+        memcpy(d_hole_blen + hole0, (const int32_t *)row[11],
+               (size_t)n_hole * sizeof(int32_t));
+        memcpy(d_hole_cls + hole0, (const uint8_t *)row[12], (size_t)n_hole);
+        memcpy(d_lit_buf + lit0, (const char *)row[14], (size_t)n_lit);
+        seg0 += n_seg;
+        hole0 += n_hole;
+        lit0 += n_lit;
+    }
+    return hole0;
 }
 
 /* ---------------------------------------------------------------- */
